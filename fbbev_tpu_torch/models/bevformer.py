@@ -1,18 +1,24 @@
 """Backward projection: depth-aware BEVFormer-style BEV refinement.
 Counterpart of ``fbbev_tpu/models/bevformer.py``.
 
-Both attentions sample through K3 (``ops/pallas_sample.py``): the spatial
-cross-attention over each camera's feature map, and the BEV
-self-attention with the BEV itself as the single-level value map.  The
+In eval both attentions sample through K3 (``ops/pallas_sample.py``): the
+spatial cross-attention over each camera's feature map, and the BEV
+self-attention with the BEV itself as the single-level value map.  In
+training they sample through the differentiable gather form
+(``ops/deform_attn.py::deformable_sample_attend``), as the JAX package
+keeps its Pallas sampling out of training (``bevformer.py:67-82``).  The
 cross-attention uses the static-K rebatch of the JAX package: per (sample,
 camera) the visible queries are compacted to the front (stable) and padded
 to ``max_queries_per_cam``; the per-camera results are gathered back with
 ``index_add_``.  All of it depends only on the rig, so serving computes it
-once (:meth:`BackwardProjection.static_terms`).
+once (:meth:`BackwardProjection.static_terms`, with the dense
+depth-sampling matrix); training computes it from each batch's cameras and
+samples the predicted depth at the anchors with bilinear gathers.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -22,8 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fbbev_tpu_torch import geometry
+from fbbev_tpu_torch.ops import deform_attn, pallas_sample
 from fbbev_tpu_torch.ops.deform_attn import bilinear_sample_matrix
-from fbbev_tpu_torch.ops.pallas_sample import deformable_sample_attend
 
 
 def msda_offset_bias(num_heads: int, num_levels: int, num_points: int,
@@ -93,8 +99,18 @@ class DeformableSelfAttention(nn.Module):
         norm = torch.tensor([W, H], dtype=torch.float32,
                             device=query.device)
         loc = ref_2d[:, :, None, None, :] + off / norm
-        out = deformable_sample_attend(v, (H, W), loc, attn)
+        out = _attend(self, selfattn=True)(v, (H, W), loc, attn)
         return self.output_proj(out.to(query.dtype)) + query
+
+
+def _attend(m: nn.Module, selfattn: bool = False):
+    """The deformable sampling of module ``m``: K3 in eval (``selfattn``
+    picks its launch counter), the differentiable gather form in
+    training."""
+    if m.training:
+        return deform_attn.deformable_sample_attend
+    return functools.partial(pallas_sample.deformable_sample_attend,
+                             selfattn=selfattn)
 
 
 class DepthAwareDeformableAttention(nn.Module):
@@ -109,10 +125,11 @@ class DepthAwareDeformableAttention(nn.Module):
                       num_z_anchors)
 
     def forward(self, query, value, ref_points, spatial_shape, depth_onehot,
-                pred_depth, depth_sample_mat):
+                pred_depth, depth_sample_mat=None):
         """query (B', K, C); value (B', H*W, C); ref_points (B', K, Z, 2);
         depth_onehot (B', K, Z, DC); pred_depth (B', H*W, DC);
-        depth_sample_mat (B', K*Z, H*W) rig-static bilinear matrix."""
+        depth_sample_mat (B', K*Z, H*W) rig-static bilinear matrix, or
+        None to sample ``pred_depth`` at the anchors by gathers."""
         Bp, K, C = query.shape
         H, W = spatial_shape
         heads, P, Z = self.heads, self.P, self.Z
@@ -126,27 +143,36 @@ class DepthAwareDeformableAttention(nn.Module):
         loc = (ref_points[:, :, None, None, :, :] + off / norm).reshape(
             Bp, K, heads, P, 2)
         DC = pred_depth.shape[-1]
-        depth_at_ref = torch.bmm(depth_sample_mat,
-                                 pred_depth.float()).reshape(Bp, K, Z, DC)
+        if depth_sample_mat is None:
+            # bilinear taps: one head, one point, unit weight
+            depth_at_ref = deform_attn.deformable_sample_attend(
+                pred_depth.float()[:, :, None], (H, W),
+                ref_points.reshape(Bp, K * Z, 1, 1, 2),
+                torch.ones(Bp, K * Z, 1, 1, device=query.device)).reshape(
+                    Bp, K, Z, DC)
+        else:
+            depth_at_ref = torch.bmm(depth_sample_mat,
+                                     pred_depth.float()).reshape(
+                                         Bp, K, Z, DC)
         depth_w = (depth_at_ref * depth_onehot).sum(-1)        # (B', K, Z)
         depth_w = depth_w[:, :, None, :].expand(Bp, K, each, Z).reshape(
             Bp, K, P)
-        return deformable_sample_attend(v, (H, W), loc,
-                                        attn * depth_w[:, :, None, :])
+        return _attend(self)(v, (H, W), loc, attn * depth_w[:, :, None, :])
 
 
 def spatial_ca_static_terms(ref_cam, per_cam_mask, query_depth, dbound,
                             num_depth_bins: int,
                             max_queries_per_cam: Optional[int],
-                            feat_hw: Tuple[int, int]
+                            feat_hw: Optional[Tuple[int, int]] = None
                             ) -> Dict[str, torch.Tensor]:
     """Rig-static tensors of the spatial cross-attention.
 
     ref_cam (B, N, Q, Z, 2); per_cam_mask / query_depth (B, N, Q, Z).
     Returns query_valid (B, N, Q), count (B, Q), the rebatch idx (B, N, K),
-    sel_valid, ref_k (B, N, K, Z, 2), oh_k (B, N, K, Z, DC) and the depth
-    sampling matrix dsmat (B, N, K*Z, Hf*Wf).  ``K >= Q`` (or None) keeps
-    every query, which is the dense formulation."""
+    sel_valid, ref_k (B, N, K, Z, 2), oh_k (B, N, K, Z, DC) and, when
+    ``feat_hw`` is given, the depth sampling matrix dsmat (B, N, K*Z,
+    Hf*Wf).  ``K >= Q`` (or None) keeps every query, which is the dense
+    formulation."""
     B, N, Q, Z, _ = ref_cam.shape
     lo, _hi, step = dbound
     valid = per_cam_mask.any(-1)
@@ -158,13 +184,15 @@ def spatial_ca_static_terms(ref_cam, per_cam_mask, query_depth, dbound,
     dbin = torch.clamp(torch.floor((qd - lo) / step), 0, num_depth_bins - 1)
     ref_k = torch.gather(ref_cam, 2,
                          idx[..., None, None].expand(B, N, K, Z, 2))
-    return dict(
+    terms = dict(
         query_valid=valid, count=count, idx=idx,
         sel_valid=torch.gather(valid, 2, idx),
         ref_k=ref_k,
-        oh_k=F.one_hot(dbin.long(), num_depth_bins).float(),
-        dsmat=bilinear_sample_matrix(ref_k.reshape(B, N, K * Z, 2),
-                                     feat_hw))
+        oh_k=F.one_hot(dbin.long(), num_depth_bins).float())
+    if feat_hw is not None:
+        terms["dsmat"] = bilinear_sample_matrix(
+            ref_k.reshape(B, N, K * Z, 2), feat_hw)
+    return terms
 
 
 class DepthAwareSpatialCrossAttention(nn.Module):
@@ -195,7 +223,8 @@ class DepthAwareSpatialCrossAttention(nn.Module):
             qd.reshape(B * N, K, C), value.to(query.dtype),
             t["ref_k"].reshape(B * N, K, Z, 2), (Hf, Wf),
             t["oh_k"].reshape(B * N, K, Z, DC), pd,
-            t["dsmat"].reshape(B * N, K * Z, Hf * Wf))
+            t["dsmat"].reshape(B * N, K * Z, Hf * Wf) if "dsmat" in t
+            else None)
         out = out.reshape(B, N, K, C) * t["sel_valid"][..., None]
         seg = (torch.arange(B, device=idx.device)[:, None, None] * Q
                + idx).reshape(-1)
@@ -261,8 +290,10 @@ class BackwardProjection(nn.Module):
             [BEVFormerEncoderLayer(embed_dims, feedforward_channels)])
 
     def static_terms(self, cam: geometry.CamParams, num_depth_bins: int,
-                     feat_hw: Tuple[int, int]) -> Dict[str, torch.Tensor]:
-        """Every rig-static tensor of this head for a calibrated rig."""
+                     feat_hw: Optional[Tuple[int, int]] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """Every rig-static tensor of this head for a calibrated rig; the
+        dense depth-sampling matrix only with ``feat_hw``."""
         H, W, gc = self.bev_h, self.bev_w, self.grid_config
         ref3d = geometry.bev_reference_points_3d(
             tuple(gc["x"]), tuple(gc["y"]), tuple(gc["z"]))
@@ -277,9 +308,13 @@ class BackwardProjection(nn.Module):
             depth.reshape(B, N, H * W, Z), self.dbound, num_depth_bins,
             self.max_queries_per_cam, feat_hw)
 
-    def forward(self, cam_feats, lss_bev, pred_depth, terms):
+    def forward(self, cam_feats, lss_bev, pred_depth, terms=None, cam=None):
         """cam_feats (B, N, Hf, Wf, C); lss_bev (B, H, W, C); pred_depth
-        (B, N, DC, Hf, Wf) -> refined (B, H, W, C)."""
+        (B, N, DC, Hf, Wf) -> refined (B, H, W, C).  ``terms``: the
+        serving hoist (:meth:`static_terms`); without it they are computed
+        from ``cam``, without the depth-sampling matrix."""
+        if terms is None:
+            terms = self.static_terms(cam, pred_depth.shape[2])
         B = cam_feats.shape[0]
         H, W = self.bev_h, self.bev_w
         C = lss_bev.shape[-1]

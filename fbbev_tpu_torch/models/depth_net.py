@@ -1,10 +1,14 @@
 """Camera-aware depth network.  Counterpart of
 ``fbbev_tpu/models/depth_net.py`` (``CM_DepthNet``, ``ASPP``,
-``get_mlp_input``).  The camera vector's BatchNorm, MLPs and SE gates stay
-float32 whatever the model dtype, as in the JAX package; the depth softmax
-is taken in float32."""
+``get_mlp_input``, ``depth_loss``).  The camera vector's BatchNorm, MLPs
+and SE gates stay float32 whatever the model dtype, as in the JAX package
+(in training that BatchNorm takes its batch statistics over the cameras
+in float32); the depth softmax is taken in float32.  ``pallas3x3`` routes
+the reduce conv and the basic blocks' 3x3 convs to K7."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn as nn
@@ -50,20 +54,22 @@ class _Atrous(nn.Module):
 
 class CM_DepthNet(nn.Module):
     def __init__(self, in_channels: int = 256, mid_channels: int = 512,
-                 context_channels: int = 80, depth_channels: int = 80):
+                 context_channels: int = 80, depth_channels: int = 80,
+                 pallas3x3: bool = False):
         super().__init__()
         m = mid_channels
         self.context_channels = context_channels
         self.depth_channels = depth_channels
         self.bn = bn(1, 27)
-        self.reduce_conv = conv_bn_relu(2, in_channels, m, 3, 1, 1)
+        self.reduce_conv = conv_bn_relu(2, in_channels, m, 3, 1, 1,
+                                        pallas3x3=pallas3x3)
         self.context_mlp = Mlp(27, m, m)
         self.context_se = SELayer(m)
         self.context_conv = nn.Conv2d(m, context_channels, 1, bias=True)
         self.depth_mlp = Mlp(27, m, m)
         self.depth_se = SELayer(m)
         self.depth_conv = nn.Sequential(
-            BasicBlock(m, m), BasicBlock(m, m), BasicBlock(m, m),
+            *(BasicBlock(m, m, pallas3x3=pallas3x3) for _ in range(3)),
             ASPP(m, m), nn.Conv2d(m, depth_channels, 1, bias=True))
 
     def float32_islands(self):
@@ -106,3 +112,39 @@ def get_mlp_input(cam) -> torch.Tensor:
         bda[..., 2, 2]], dim=-1)
     s2e = torch.cat([cam.rots, cam.trans[..., None]], -1).reshape(B, N, 12)
     return torch.cat([head, s2e], dim=-1)
+
+
+def downsample_gt_depth(gt_depth: torch.Tensor, downsample: int,
+                        depth_bounds: Sequence[float],
+                        depth_channels: int) -> torch.Tensor:
+    """Min-pool the GT depth to the feature resolution and one-hot its bin:
+    ``(B*N*h*w, depth_channels)``, all-zero rows for background.
+    Counterpart of ``depth_net.py:179`` (zeros count as +inf for the min;
+    bin = (d - (lo - step)) / step, out of range -> dropped bin 0)."""
+    B, N, H, W = gt_depth.shape
+    ds = downsample
+    g = gt_depth.reshape(B * N, H // ds, ds, W // ds, ds)
+    g = g.permute(0, 1, 3, 2, 4).reshape(-1, ds * ds)
+    g = torch.where(g == 0.0, torch.full_like(g, 1e5), g).min(-1).values
+    lo, _hi, step = depth_bounds
+    g = (g - (lo - step)) / step
+    g = torch.where((g < depth_channels + 1) & (g >= 0.0), g,
+                    torch.zeros_like(g))
+    return F.one_hot(g.to(torch.int32).long(),
+                     depth_channels + 1)[:, 1:].float()
+
+
+def depth_loss(gt_depth: torch.Tensor, depth_pred: torch.Tensor,
+               downsample: int, depth_bounds: Sequence[float],
+               loss_weight: float = 1.0) -> torch.Tensor:
+    """Binary cross entropy of the predicted depth distribution ``(B, N,
+    D, h, w)`` against the one-hot GT over foreground pixels, float32.
+    Counterpart of ``depth_net.py:202``."""
+    D = depth_pred.shape[2]
+    labels = downsample_gt_depth(gt_depth, downsample, depth_bounds, D)
+    preds = depth_pred.permute(0, 1, 3, 4, 2).reshape(-1, D).float()
+    fg = labels.max(1).values > 0.0
+    p = preds.clamp(1e-7, 1.0 - 1e-7)
+    bce = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
+    bce = (bce * fg[:, None]).sum()
+    return loss_weight * bce / torch.clamp(fg.sum().float(), min=1.0)

@@ -1,25 +1,33 @@
-"""FB-OCC for serving: image encoder, depth net, backward projection,
-SoloFusion temporal fusion on the ring-slot history (K1), 3D encoder and
-occupancy head.  Counterpart of ``fbbev_tpu/models/fbocc.py``.
+"""FB-OCC: image encoder, depth net, forward (LSS) and backward
+projection, SoloFusion temporal fusion, 3D encoder and occupancy head.
+Counterpart of ``fbbev_tpu/models/fbocc.py``.
 
 The temporal history is an explicit :class:`TemporalState` carried from
-frame to frame.  It is kept in FIXED ring slots, the layout of the JAX
-package's fused TPU path (``fbocc.py:357-419``) and K1's contract: each
-frame overwrites its oldest slot and ``sweep_time`` carries each slot's
-age; age order is restored where it is consumed, by permuting the rows
-of the cat-conv weight.
+frame to frame, in one of two layouts, each consumed only by the path
+that produced it (as in the JAX package):
+
+* serving (``serving.py``, :meth:`FBOCC.fuse_history`) keeps it in FIXED
+  ring slots, the layout of the JAX package's fused TPU path
+  (``fbocc.py:357-419``) and K1's contract: each frame overwrites its
+  oldest slot and ``sweep_time`` carries each slot's age; age order is
+  restored where it is consumed, by permuting the rows of the cat-conv
+  weight;
+* :meth:`FBOCC.forward` -- training, and evaluation outside serving --
+  keeps it age-ordered (newest first, shifted by one frame per step), the
+  JAX package's XLA fallback (``fbocc.py:436-513``,
+  :meth:`FBOCC.fuse_history_aged`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from fbbev_tpu_torch import geometry
 from fbbev_tpu_torch.models.bevformer import BackwardProjection
-from fbbev_tpu_torch.models.depth_net import CM_DepthNet
+from fbbev_tpu_torch.models.depth_net import CM_DepthNet, get_mlp_input
 from fbbev_tpu_torch.models.fpn import CustomFPN
 from fbbev_tpu_torch.models.fpn3d import FPN3D
 from fbbev_tpu_torch.models.layers import RingCatConvBN, TimeEmbedConvBN
@@ -28,6 +36,7 @@ from fbbev_tpu_torch.models.occ_head import OccHead
 from fbbev_tpu_torch.models.resnet import ResNet
 from fbbev_tpu_torch.models.resnet3d import CustomResNet3D
 from fbbev_tpu_torch.ops import pallas_fuse_warp
+from fbbev_tpu_torch.ops.grid_sample import grid_sample_3d
 
 DEFAULT_GRID_CONFIG = {
     "x": (-40.0, 40.0, 0.8),
@@ -81,7 +90,14 @@ def make_backward_projection(model: "FBOCC") -> BackwardProjection:
 
 class FBOCC(nn.Module):
     """Flagship FB-OCC (R50, 16 history frames, occupancy head); the
-    defaults are ``fbbev_tpu/configs/fbocc-r50-cbgs_depth_16f.py``."""
+    defaults are ``fbbev_tpu/configs/fbocc-r50-cbgs_depth_16f.py``.
+
+    ``pallas3x3`` routes the 3x3 stride-1 convolutions to K7 as the JAX
+    configuration ``FBBEV_PALLAS3X3=1`` does (default off, as there): the
+    image trunk's 2D ones directly, the 3D encoder's, FPN3D's and the occ
+    head's 3x3x3 ones through the z-slab decomposition;
+    ``remat`` checkpoints each ResNet stage in training (the config's
+    ``remat=True``)."""
 
     def __init__(self, grid_config=None, bevformer_grid_config=None,
                  input_size: Tuple[int, int] = (256, 704),
@@ -94,7 +110,8 @@ class FBOCC(nn.Module):
                  max_queries_per_cam: Optional[int] = 4096,
                  voxel_channels: Tuple[int, ...] = (64, 128, 256),
                  voxel_out_channels: int = 256, dtype=torch.float32,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 pallas3x3: bool = False, remat: bool = False):
         super().__init__()
         self.grid_config = dict(grid_config or DEFAULT_GRID_CONFIG)
         self.bevformer_grid_config = dict(
@@ -107,23 +124,24 @@ class FBOCC(nn.Module):
         self.history_cat_num = history_cat_num
         self.max_queries_per_cam = max_queries_per_cam
         self.dtype = dtype
+        self.pallas3x3 = pallas3x3
         self.forward_projection = LSSViewTransformer3D(
             self.grid_config, self.input_size, downsample)
 
-        self.img_backbone = ResNet()
-        self.img_neck = CustomFPN((1024, 2048), img_feat_channels)
+        self.img_backbone = ResNet(pallas3x3, remat)
+        self.img_neck = CustomFPN((1024, 2048), img_feat_channels, pallas3x3)
         self.depth_net = CM_DepthNet(img_feat_channels, depth_mid_channels,
-                                     C, depth_channels)
+                                     C, depth_channels, pallas3x3)
         self.backward_projection = make_backward_projection(self)
         self.history_keyframe_time_conv = TimeEmbedConvBN(C, C)
         self.history_keyframe_cat_conv = RingCatConvBN(
             C * (history_cat_num + 1), history_cat_conv_out_channels)
         self.img_bev_encoder_backbone = CustomResNet3D(
-            history_cat_conv_out_channels, tuple(voxel_channels))
+            history_cat_conv_out_channels, tuple(voxel_channels), pallas3x3)
         self.img_bev_encoder_neck = FPN3D(tuple(voxel_channels),
-                                          voxel_out_channels)
+                                          voxel_out_channels, pallas3x3)
         self.occupancy_head = OccHead((voxel_out_channels,) * 3,
-                                      num_classes)
+                                      num_classes, pallas3x3)
         init_weights(self, generator)
         self.to(device=device, dtype=dtype)
         for m in self.depth_net.float32_islands():
@@ -135,6 +153,9 @@ class FBOCC(nn.Module):
         """(B, N, H, W, 3) -> (B, N, fH, fW, C) single-level features."""
         B, N, H, W, _ = imgs.shape
         x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2).to(self.dtype)
+        if self.pallas3x3:
+            # K7 reads channels-last memory: keep the trunk in it
+            x = x.contiguous(memory_format=torch.channels_last)
         x = self.img_neck(self.img_backbone(x))
         return x.permute(0, 2, 3, 1).reshape(B, N, *x.shape[2:], x.shape[1])
 
@@ -199,6 +220,96 @@ class FBOCC(nn.Module):
                                   seq_ids=seq_ids,
                                   forward_augs=forward_augs)
         return fused, new_state
+
+
+    # ------------------------------------------------------------------
+    def fuse_history_aged(self, curr_bev: torch.Tensor, state: TemporalState,
+                          meta: Dict[str, Any], bda: torch.Tensor,
+                          do_history: bool = True):
+        """SoloFusion temporal fusion on the age-ordered history, the JAX
+        package's XLA fallback (``fbocc.py:436-513``), in train and eval.
+
+        curr_bev (B, Y, X, Z, C); meta as :meth:`fuse_history`; with
+        ``do_history`` False every sample starts a fresh stream
+        (``fbocc.py:314-321``).  Returns (fused (B, Y, X, Z, F),
+        new_state, seq_mismatch (B,) bool: a non-start sample whose
+        stream id differs from the buffered one).  The history carries no
+        gradient."""
+        dt = self.dtype
+        curr_bev = curr_bev.to(dt)
+        B, ny, nx, nz, C = curr_bev.shape
+        T = self.history_cat_num
+        dev = curr_bev.device
+        start = meta["start_of_sequence"].to(torch.bool)
+        if not do_history:
+            start = torch.ones_like(start)
+        start = start | (state.seq_ids < 0)
+        seq_ids = meta["sequence_group_idx"].to(torch.int32)
+        forward_augs = geometry.forward_aug_matrix(bda.float())
+        curr_to_prev = meta["curr_to_prev_ego_rt"].float()
+        seq_mismatch = ~start & (state.seq_ids != seq_ids)
+
+        sweep_r = torch.where(start[:, None], torch.zeros_like(
+            state.sweep_time), state.sweep_time + 1.0)
+        hist_augs = torch.where(start[:, None, None], forward_augs,
+                                state.forward_augs)
+        with torch.no_grad():
+            curr_zyx = curr_bev.detach().permute(0, 3, 1, 2, 4)
+            hist_zyx = torch.where(start[:, None, None, None, None],
+                                   curr_zyx.repeat(1, 1, 1, 1, T),
+                                   state.history_bev.to(dt))
+            fp = self.forward_projection
+            f2b = torch.from_numpy(geometry.feat2bev_matrix(fp.dx, fp.bx)).to(
+                dev)
+            grid = geometry.history_flow_grid(hist_augs, forward_augs,
+                                              curr_to_prev, f2b, (nz, ny, nx))
+            sampled = grid_sample_3d(hist_zyx, grid).permute(
+                0, 2, 3, 1, 4).to(dt)                      # (B, Y, X, Z, TC)
+        feats_cat = torch.cat([curr_bev, sampled], -1)     # (1 + T) C
+        sweep_full = torch.cat([torch.zeros(B, 1, device=dev), sweep_r], 1)
+        new_hist = feats_cat[..., :T * C].detach().permute(
+            0, 3, 1, 2, 4).contiguous()
+        # the 1x1x1 time conv mixes no positions: frames fold into Z
+        frames = feats_cat.reshape(B, ny, nx, nz * (T + 1), C)
+        t_emb = (sweep_full * 0.5)[:, None, :].expand(B, nz, T + 1).reshape(
+            B, 1, 1, nz * (T + 1), 1)
+        frames = self.history_keyframe_time_conv(frames, t_emb)
+        fused = self.history_keyframe_cat_conv.aged(
+            frames.reshape(B, ny, nx, nz, (T + 1) * C))
+        new_state = TemporalState(history_bev=new_hist,
+                                  sweep_time=sweep_full[:, :-1],
+                                  seq_ids=seq_ids, forward_augs=forward_augs)
+        return fused, new_state, seq_mismatch
+
+    # ------------------------------------------------------------------
+    def forward(self, batch: Dict[str, torch.Tensor], state: TemporalState,
+                train: bool = False, do_history: bool = True):
+        """One frame through the whole model, counterpart of the JAX
+        ``FBOCC.__call__`` (``fbocc.py:516-575``).  Sets the module's mode
+        from ``train``.
+
+        ``batch``: imgs (B, N, H, W, 3); the camera parameters (rots,
+        trans, intrins, post_rots, post_trans, bda); start_of_sequence,
+        sequence_group_idx, curr_to_prev_ego_rt.  Returns (outputs, new
+        state); outputs hold ``depth``, ``context``, ``bev_refined``,
+        ``seq_mismatch`` and ``occ_logits`` (B, Y, X, Z, classes) f32."""
+        self.train(train)
+        cam = geometry.CamParams(*(batch[k] for k in geometry.CamParams._fields))
+        feats = self.image_encoder(batch["imgs"])
+        context, depth = self.depth_net(feats, get_mlp_input(cam))
+        bev = self.forward_projection(cam, context, depth)
+        outputs = {"depth": depth, "context": context}
+        refined = self.backward_projection(
+            context, bev.mean(dim=3).to(self.dtype), depth, cam=cam)
+        bev = refined.float()[:, :, :, None, :] + bev
+        outputs["bev_refined"] = refined
+        fused, new_state, seq_mismatch = self.fuse_history_aged(
+            bev, state, batch, cam.bda, do_history)
+        outputs["seq_mismatch"] = seq_mismatch
+        vox = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(
+            fused.permute(0, 4, 1, 2, 3)))
+        outputs["occ_logits"] = self.occupancy_head(vox, return_labels=False)
+        return outputs, new_state
 
 
 def init_weights(model: nn.Module, generator: Optional[torch.Generator]):

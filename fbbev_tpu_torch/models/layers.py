@@ -1,5 +1,6 @@
 """Shared building blocks of the port.  Counterpart of
-``fbbev_tpu/models/layers.py``, limited to what the serving path uses.
+``fbbev_tpu/models/layers.py``, limited to what the serving and training
+paths use.
 
 2D blocks take NCHW tensors and 3D blocks ``(B, C, Y, X, Z)`` tensors
 (``nn.Conv3d``'s ``(N, C, D, H, W)`` with D=Y, H=X, W=Z), so the JAX
@@ -10,7 +11,17 @@ convolution does, so the JAX package passes explicit paddings on the
 paths ported here and so does the port.  Module and parameter names are
 the reference's torch names, so the converted state dict loads with
 ``strict=True``.  The JAX package's TPU convolution routings (z-slab,
-z-fold, Pallas convs) are plain ``nn.Conv3d``/``nn.Conv2d`` here.
+z-fold, the 3D Pallas conv) are plain ``nn.Conv3d``/``nn.Conv2d`` here,
+except where they reach its Pallas 3x3 conv (``FBBEV_PALLAS3X3=1``), the
+port's K7: convolutions built with ``pallas3x3=True`` take it, the 2D
+3x3 stride-1 ones directly (:class:`Conv3x3K7`) and the 3x3x3 stride-1
+ones through the z-slab decomposition (:class:`Conv3dZSlabK7`).
+
+BatchNorm has flax semantics (:func:`batch_norm`): in train mode it
+normalises with the biased batch variance and updates the running
+statistics with it, ``running = 0.9 * running + 0.1 * batch``, the batch
+statistics taken in float32 (the running statistics are float32 in
+training: the ``Trainer`` makes every BatchNorm float32).
 """
 
 from __future__ import annotations
@@ -20,29 +31,149 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from fbbev_tpu_torch.ops import pallas_conv
+
+
+class Conv3x3K7(nn.Conv2d):
+    """3x3 stride-1 padding-1 ``nn.Conv2d`` whose forward and input
+    gradient run on K7 (``ops/pallas_conv.py``) wherever the JAX routing
+    gate :func:`pallas_conv.supports` holds for the input, and on
+    ``nn.Conv2d`` elsewhere, as ``layers.py:74-84`` of the JAX package
+    routes."""
+
+    def forward(self, x):
+        if not pallas_conv.supports(x.shape, self.out_channels):
+            return super().forward(x)
+        y = pallas_conv.conv3x3(x, self.weight)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
+
+
+class Conv3dZSlabK7(nn.Conv3d):
+    """3x3x3 stride-1 padding-1 ``nn.Conv3d`` on ``(B, C, Y, X, Z)``
+    tensors as the JAX package's stride-1 z-slab decomposition
+    (``Conv3DZSlab``, ``layers.py:136-183``): three z-shifted 3x3 2D convs
+    over the ``(B*Z, C, Y, X)`` slabs, summed in the input's type, each on
+    K7 (forward and input gradient) where :func:`pallas_conv.supports`
+    holds for a slab, and ``nn.Conv3d`` elsewhere."""
+
+    def forward(self, x):
+        B, C, Y, X, Z = x.shape
+        if not pallas_conv.supports((B * Z, C, Y, X), self.out_channels):
+            return super().forward(x)
+        # (B, Z+2, Y, X, C) contiguous: each slab is a free channels-last
+        # view, the memory K7 reads
+        xp = F.pad(x, (1, 1)).permute(0, 4, 2, 3, 1).contiguous()
+        out = None
+        for dz in range(3):
+            xs = xp[:, dz:dz + Z].reshape(B * Z, Y, X, C).permute(0, 3, 1, 2)
+            y = pallas_conv.conv3x3(xs, self.weight[..., dz])
+            y = y.permute(0, 2, 3, 1).reshape(B, Z, Y, X, -1)
+            out = y if out is None else out + y
+        out = out.permute(0, 4, 2, 3, 1)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)[:, None, None, None]
+        return out
 
 
 def conv(ndim: int, cin: int, cout: int, k: int, stride: int = 1,
-         padding: int = 0, dilation: int = 1, bias: bool = False):
-    """``nn.Conv{2,3}d`` with explicit integer padding."""
+         padding: int = 0, dilation: int = 1, bias: bool = False,
+         pallas3x3: bool = False):
+    """``nn.Conv{2,3}d`` with explicit integer padding; with ``pallas3x3``
+    a 3x3(x3) stride-1 padding-1 undilated conv is a :class:`Conv3x3K7`
+    (2D) or a :class:`Conv3dZSlabK7` (3D)."""
     assert isinstance(padding, int), padding
+    if pallas3x3 and (k, stride, padding, dilation) == (3, 1, 1, 1):
+        cls = Conv3x3K7 if ndim == 2 else Conv3dZSlabK7
+        return cls(cin, cout, 3, padding=1, bias=bias)
     cls = nn.Conv2d if ndim == 2 else nn.Conv3d
     return cls(cin, cout, k, stride=stride, padding=padding,
                dilation=dilation, bias=bias)
 
 
+def batch_norm(m: "BatchNorm", x: torch.Tensor, dim: int = 1
+               ) -> torch.Tensor:
+    """BatchNorm of ``m`` over channel axis ``dim`` of ``x``, flax
+    semantics.  Eval: the running statistics.  Train: the batch statistics
+    over every other axis, biased variance; unless ``m.update_stats`` is
+    off (a checkpointed segment's recomputation), the running statistics
+    move by ``0.9 * running + 0.1 * batch`` with that biased variance.
+
+    ``F.batch_norm`` takes the statistics in one float32 pass and moves
+    the running variance with the unbiased batch variance v_u = v * n /
+    (n - 1); that update is corrected here to the biased one:
+    ``0.9 r + 0.1 v = r' - (r' - 0.9 r) / n`` for its result r'.  Like
+    ``nn.BatchNorm``, training needs more than one value per channel."""
+    move = dim % x.ndim != 1
+    if move:
+        x = x.movedim(dim, 1)
+    if not m.training:
+        y = F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
+                         False, 0.0, m.eps)
+    else:
+        # copies: autograd keeps the tensors it was given unmodified, and a
+        # checkpointed recomputation saves the same tensors as the forward
+        mean, var = m.running_mean.clone(), m.running_var.clone()
+        y = F.batch_norm(x, mean, var, m.weight, m.bias, True, m.momentum,
+                         m.eps)
+        if m.update_stats:
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(
+                    var - (var - (1.0 - m.momentum) * m.running_var) / n)
+    return y.movedim(1, dim) if move else y
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over axis 1 of an input of any rank, :func:`batch_norm`'s
+    semantics; ``nn.BatchNorm{1,2,3}d``'s parameters and buffers."""
+
+    update_stats = True  # off while a checkpointed stage recomputes
+
+    def forward(self, x):
+        return batch_norm(self, x, 1)
+
+
 def bn(ndim: int, c: int):
-    cls = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[ndim]
-    return cls(c, eps=1e-5, momentum=0.1)
+    """BatchNorm of ``c`` channels (``ndim`` names the reference's
+    ``BatchNorm{ndim}d``; the module takes any rank)."""
+    return BatchNorm(c, eps=1e-5, momentum=0.1)
+
+
+def checkpoint_stage(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``stage(x)`` under activation checkpointing (the JAX config's
+    ``remat=True``): the backward recomputes the stage, and its BatchNorms
+    leave the running statistics alone on that second pass, as flax's
+    ``nn.remat`` discards the recomputation's state updates."""
+    norms = [m for m in stage.modules() if isinstance(m, BatchNorm)]
+    calls = []
+
+    def run(x):
+        first = not calls
+        calls.append(1)
+        for m in norms:
+            m.update_stats = first
+        try:
+            return stage(x)
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    # no random ops inside a stage: the RNG state need not be restored
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def conv_bn_relu(ndim: int, cin: int, cout: int, k: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, bias: bool = False,
-                 relu: bool = True) -> nn.Sequential:
+                 relu: bool = True, pallas3x3: bool = False) -> nn.Sequential:
     """``Sequential(conv, bn[, relu])`` -- the reference's ``X.0``/``X.1``
     naming."""
-    mods = [conv(ndim, cin, cout, k, stride, padding, dilation, bias),
-            bn(ndim, cout)]
+    mods = [conv(ndim, cin, cout, k, stride, padding, dilation, bias,
+                 pallas3x3), bn(ndim, cout)]
     if relu:
         mods.append(nn.ReLU())
     return nn.Sequential(*mods)
@@ -53,9 +184,10 @@ class ConvModule(nn.Module):
 
     def __init__(self, ndim: int, cin: int, cout: int, k: int,
                  padding: int = 0, bias: bool = False, norm: bool = True,
-                 relu: bool = True):
+                 relu: bool = True, pallas3x3: bool = False):
         super().__init__()
-        self.conv = conv(ndim, cin, cout, k, padding=padding, bias=bias)
+        self.conv = conv(ndim, cin, cout, k, padding=padding, bias=bias,
+                         pallas3x3=pallas3x3)
         self.bn = bn(ndim, cout) if norm else None
         self.relu = relu
 
@@ -71,11 +203,13 @@ class BasicBlock(nn.Module):
     encoder's convs carry a bias, the 2D ones do not."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1, ndim: int = 2,
-                 bias: bool = False):
+                 bias: bool = False, pallas3x3: bool = False):
         super().__init__()
-        self.conv1 = conv(ndim, cin, cout, 3, stride, 1, bias=bias)
+        self.conv1 = conv(ndim, cin, cout, 3, stride, 1, bias=bias,
+                          pallas3x3=pallas3x3)
         self.bn1 = bn(ndim, cout)
-        self.conv2 = conv(ndim, cout, cout, 3, 1, 1, bias=bias)
+        self.conv2 = conv(ndim, cout, cout, 3, 1, 1, bias=bias,
+                          pallas3x3=pallas3x3)
         self.bn2 = bn(ndim, cout)
         self.downsample = None
         if stride != 1 or cin != cout:
@@ -94,12 +228,14 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, planes: int, stride: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 pallas3x3: bool = False):
         super().__init__()
         out = planes * self.expansion
         self.conv1 = conv(2, cin, planes, 1)
         self.bn1 = bn(2, planes)
-        self.conv2 = conv(2, planes, planes, 3, stride, 1)
+        self.conv2 = conv(2, planes, planes, 3, stride, 1,
+                          pallas3x3=pallas3x3)
         self.bn2 = bn(2, planes)
         self.conv3 = conv(2, planes, out, 1)
         self.bn3 = bn(2, out)
@@ -208,8 +344,14 @@ class RingCatConvBN(nn.Sequential):
              + self[0].bias)
         return F.relu(channels_last_bn(self[1], y))
 
+    def aged(self, frames):
+        """The plain cat conv over age-ordered channels-last frames
+        ``(B, ..., Cin)`` (newest first): the JAX package's
+        ``history_keyframe_cat_conv`` without ``perm``."""
+        y = frames @ self.kernel() + self[0].bias
+        return F.relu(channels_last_bn(self[1], y))
 
-def channels_last_bn(m: nn.modules.batchnorm._BatchNorm, x):
-    """Eval BatchNorm over the last axis of a channels-last tensor."""
-    return F.batch_norm(x.movedim(-1, 1), m.running_mean, m.running_var,
-                        m.weight, m.bias, False, 0.0, m.eps).movedim(1, -1)
+
+def channels_last_bn(m: BatchNorm, x):
+    """:func:`batch_norm` over the last axis of a channels-last tensor."""
+    return batch_norm(m, x, -1)

@@ -1,13 +1,19 @@
-"""Lift-splat-shoot grid metadata.  Counterpart of
-``fbbev_tpu/models/lss.py::LSSViewTransformer3D``: parameter-free; the
-splat itself is K2 (``ops/pallas_pool.py``) over ranks computed once per
-rig on the host."""
+"""Lift-splat-shoot forward projection.  Counterpart of
+``fbbev_tpu/models/lss.py::LSSViewTransformer3D``: parameter-free grid
+metadata, and the splat of one batch (:meth:`__call__`) with its frustum
+lifted through that batch's cameras and pooled by the differentiable
+segment sum (``ops/bev_pool.py``), as training does: it does not hoist
+the rig.  Serving pools with K2 (``ops/pallas_pool.py``) over ranks
+computed once per rig on the host."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import torch
+
 from fbbev_tpu_torch import geometry
+from fbbev_tpu_torch.ops.bev_pool import lss_voxel_pool
 
 
 class LSSViewTransformer3D:
@@ -24,3 +30,12 @@ class LSSViewTransformer3D:
         self.frustum = geometry.create_frustum(
             grid_config["depth"], self.input_size, downsample)
         self.D = self.frustum.shape[0]
+
+    def __call__(self, cam: geometry.CamParams, context: torch.Tensor,
+                 depth: torch.Tensor) -> torch.Tensor:
+        """context (B, N, fH, fW, C); depth (B, N, D, fH, fW) -> (B, Y, X,
+        Z, C) float32 voxel features."""
+        coor = geometry.frustum_to_ego(torch.from_numpy(self.frustum), cam)
+        return lss_voxel_pool(coor, depth.float(), context.float(),
+                              self.grid_lower, self.grid_interval,
+                              self.grid_size)

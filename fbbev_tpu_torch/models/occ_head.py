@@ -1,10 +1,15 @@
-"""Occupancy head (eval).  Counterpart of
-``fbbev_tpu/models/occ_head.py::OccHead`` with its coarse-pred reorder
-(``_PredConvFused``): the 1x1x1 ``occ_pred_conv.0`` is applied to each
-level at its own resolution before the trilinear upsample and the
-softmax blend, which is exact because the conv is linear and commutes
-with the per-voxel blend weights and the linear upsample; BN and relu run
-after the blend as in the reference order.  ``(B, C, Y, X, Z)`` inputs."""
+"""Occupancy head.  Counterpart of
+``fbbev_tpu/models/occ_head.py::OccHead``.  In eval it takes the
+coarse-pred reorder (``_PredConvFused``): the 1x1x1 ``occ_pred_conv.0``
+is applied to each level at its own resolution before the trilinear
+upsample and the softmax blend, which is exact because the conv is linear
+and commutes with the per-voxel blend weights and the linear upsample; BN
+and relu run after the blend as in the reference order.  In training the
+levels are upsampled and blended first and ``occ_pred_conv`` runs on the
+blend, as the JAX train path does (``occ_head.py:108``: no reorder), with
+batch-statistics BN.  ``pallas3x3`` routes the 3x3x3 level convs to
+K7 through the z-slab decomposition, as the JAX configuration
+``FBBEV_PALLAS3X3=1`` does.  ``(B, C, Y, X, Z)`` inputs."""
 
 from __future__ import annotations
 
@@ -14,13 +19,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fbbev_tpu_torch.models import losses as L
 from fbbev_tpu_torch.models.layers import bn, conv, conv_bn_relu, \
     resize_trilinear
 
 
 class OccHead(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 256, 256),
-                 out_channel: int = 19):
+                 out_channel: int = 19, pallas3x3: bool = False):
         super().__init__()
         mid = in_channels[0] // 2
         n_feats = len(in_channels) + 1
@@ -29,7 +35,8 @@ class OccHead(nn.Module):
                                bias=False),
             bn(3, mid), nn.ReLU())
         self.occ_convs = nn.ModuleList(
-            conv_bn_relu(3, c, mid, 3, 1, 1) for c in in_channels)
+            conv_bn_relu(3, c, mid, 3, 1, 1, pallas3x3=pallas3x3)
+            for c in in_channels)
         self.voxel_soft_weights = nn.Sequential(
             conv(3, mid, mid // 2, 1), bn(3, mid // 2), nn.ReLU(),
             conv(3, mid // 2, n_feats, 1))
@@ -45,14 +52,70 @@ class OccHead(nn.Module):
         w = torch.softmax(self.voxel_soft_weights(outs[0]), dim=1)
         target = outs[0].shape[2:]
         conv1 = self.occ_pred_conv[0]
+        # eval: conv1 per level before the blend; train: on the blend
         fused = 0
         for i, f in enumerate(outs):
-            y = conv1(f)
+            y = f if self.training else conv1(f)
             if y.shape[2:] != target:
                 y = resize_trilinear(y, target)
             fused = fused + y * w[:, i:i + 1]
+        if self.training:
+            fused = conv1(fused)
         y = F.relu(self.occ_pred_conv[1](fused))
         logits = self.occ_pred_conv[3](y).float()
         if return_labels:
             return logits.argmax(1)
         return logits.permute(0, 2, 3, 4, 1)
+
+
+def downsample_gt_mode_pool(target: torch.Tensor, ratio: int,
+                            empty_idx: int = 18,
+                            num_classes: int = 19) -> torch.Tensor:
+    """GT mode-pooling for coarse supervision, counterpart of
+    ``occ_head.py:274`` with the reference's quirks: blocks whose label
+    sum equals ``empty_idx`` take the raw mode; elsewhere label-0 voxels
+    never win, and a block whose non-zero labels are all distinct becomes
+    255; ties go to the smallest value (``torch.mode``)."""
+    B, H, W, D = target.shape
+    r = ratio
+    t = target.reshape(B, H // r, r, W // r, r, D // r, r)
+    t = t.permute(0, 1, 3, 5, 2, 4, 6).reshape(
+        B, H // r, W // r, D // r, r ** 3).long()
+    raw_block = t.sum(-1) == empty_idx
+    values = torch.cat([torch.arange(num_classes, device=t.device),
+                        torch.tensor([255], device=t.device)])
+    cnt = (t[..., None, :] == values[:, None]).sum(-1)     # (..., V)
+    has_zero = cnt[..., 0] > 0
+    eff = cnt.clone()
+    eff[..., 0] = cnt[..., 0] * raw_block.long()
+    max_eff = eff.max(-1).values
+    mode_label = values[torch.argmax(eff, dim=-1)]
+    negative_wins = ~raw_block & has_zero & (max_eff <= 1)
+    return torch.where(negative_wins, torch.full_like(mode_label, 255),
+                       mode_label)
+
+
+def occ_losses(logits: torch.Tensor, target: torch.Tensor,
+               class_weights: torch.Tensor, dist_weight: torch.Tensor,
+               empty_idx: int = 18, use_focal: bool = True,
+               lovasz: str = "hist"):
+    """The four voxel losses (tag c_0), counterpart of
+    ``occ_head.py:318``; the GT is mode-pooled first when it is finer than
+    the logits.  ``lovasz`` picks the Lovasz form ("hist" or "sort")."""
+    ratio = target.shape[1] // logits.shape[1]
+    if ratio != 1:
+        target = downsample_gt_mode_pool(target, ratio, empty_idx)
+    logits = torch.nan_to_num(logits, nan=0.0, posinf=0.0, neginf=0.0)
+    out = {}
+    if use_focal:
+        out["loss_voxel_ce_c_0"] = L.focal_ce_loss(
+            logits, target, class_weights, dist_weight)
+    else:
+        out["loss_voxel_ce_c_0"] = L.ce_ssc_loss(logits, target,
+                                                 class_weights)
+    out["loss_voxel_sem_scal_c_0"] = L.sem_scal_loss(logits, target)
+    out["loss_voxel_geo_scal_c_0"] = L.geo_scal_loss(
+        logits, target, non_empty_idx=empty_idx)
+    out["loss_voxel_lovasz_c_0"] = L.lovasz_softmax_loss(logits, target,
+                                                         method=lovasz)
+    return out

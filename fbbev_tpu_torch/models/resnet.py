@@ -1,18 +1,25 @@
 """ResNet-50 image backbone (torchvision layout, NCHW).  Counterpart of
 ``fbbev_tpu/models/resnet.py`` at the FB-OCC config: returns the C4 and
-C5 stages (strides 16 and 32)."""
+C5 stages (strides 16 and 32).
+
+``pallas3x3`` routes the stride-1 3x3 convs to K7; ``remat`` checkpoints
+each stage in training (the config's ``remat=True``; the backward
+recomputes the stage)."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fbbev_tpu_torch.models.layers import Bottleneck, bn, conv, max_pool_same
+from fbbev_tpu_torch.models.layers import Bottleneck, bn, checkpoint_stage, \
+    conv, max_pool_same
 
 
 class ResNet(nn.Module):
-    def __init__(self):
+    def __init__(self, pallas3x3: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = conv(2, 3, 64, 7, 2, 3)
         self.bn1 = bn(2, 64)
         cin, planes = 64, 64
@@ -20,12 +27,15 @@ class ResNet(nn.Module):
             blocks = []
             for j in range(n):
                 stride = 2 if (i > 0 and j == 0) else 1
-                blocks.append(Bottleneck(cin, planes, stride))
+                blocks.append(Bottleneck(cin, planes, stride, pallas3x3))
                 cin = planes * Bottleneck.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
             planes *= 2
 
     def forward(self, x):
         x = max_pool_same(F.relu(self.bn1(self.conv1(x))), 3, 2)
-        c4 = self.layer3(self.layer2(self.layer1(x)))
-        return [c4, self.layer4(c4)]
+        run = (checkpoint_stage
+               if self.remat and self.training and torch.is_grad_enabled()
+               else (lambda stage, x: stage(x)))
+        c4 = run(self.layer3, run(self.layer2, run(self.layer1, x)))
+        return [c4, run(self.layer4, c4)]

@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-KERNELS = ("bev_pool", "msda", "fuse_warp")
+KERNELS = ("bev_pool", "msda", "fuse_warp", "conv3x3")
 # --fmad=false keeps every float expression as separately rounded
 # multiplies and adds, the rounding of the plain PyTorch versions
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,6 +83,18 @@ def check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {status}")
+
+
+def refuse_grad(name: str, *ts) -> None:
+    """Raise if grad mode is on and any input requires grad: the kernel
+    (and its plain version, which stands in for it) records no backward,
+    so its output would silently cut the autograd graph."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in ts):
+        raise RuntimeError(f"{name} has no backward; call it under "
+                           f"torch.no_grad() or on tensors that do not "
+                           f"require grad")
 
 
 def stream_ptr(t) -> int:

@@ -2,9 +2,11 @@
 
 Counterpart of ``fbbev_tpu/ops/deform_attn.py``: the mmcv PyTorch
 formulation of multi-scale deformable attention (``F.grid_sample``,
-align_corners=False, zero padding), and the dense bilinear interpolation
+align_corners=False, zero padding), the dense bilinear interpolation
 matrix of rig-static sampling locations that serving hoists out of the
-per-frame step.
+per-frame step, and the differentiable gather form of deformable
+sampling (:func:`deformable_sample_attend`): K3's plain version, and what
+training samples with (K3 records no backward).
 """
 
 from __future__ import annotations
@@ -42,6 +44,35 @@ def bilinear_sample_matrix(loc: torch.Tensor,
     for idx, w in bilinear_corners(loc, H, W):
         mat.scatter_add_(-1, idx[..., None], w[..., None].to(dtype))
     return mat
+
+
+def deformable_sample_attend(value: torch.Tensor,
+                             spatial_shape: Tuple[int, int],
+                             loc: torch.Tensor,
+                             attn: torch.Tensor) -> torch.Tensor:
+    """Single-level deformable sampling + attention sum, differentiable;
+    counterpart of ``deform_attn.py:122`` and K3's plain version.  value
+    (B, H*W, heads, hd); loc (B, Q, heads, P, 2) in [0, 1]; attn (B, Q,
+    heads, P) -> (B, Q, heads*hd) f32.
+
+    Zero-padded bilinear taps (``grid_sample`` align_corners=False), the
+    exact taps everywhere (the JAX self-attention's grid-tiled form agrees
+    inside its locality contract).  The weight tent_x * tent_y * attn is
+    rounded to the value type, as the TPU kernel rounds its one-hot
+    (``pallas_sample.py:65``); the sum is f32."""
+    B, HW, heads, hd = value.shape
+    H, W = spatial_shape
+    Q, P = loc.shape[1], loc.shape[3]
+    vh = value.permute(0, 2, 1, 3)                     # (B, heads, HW, hd)
+    out = torch.zeros(B, heads, Q, hd, dtype=torch.float32,
+                      device=value.device)
+    for idx, w in bilinear_corners(loc.float(), H, W):
+        w = (w * attn.float()).to(value.dtype).float()
+        idx = idx.permute(0, 2, 1, 3).reshape(B, heads, Q * P, 1)
+        g = torch.gather(vh, 2, idx.expand(-1, -1, -1, hd)).float()
+        g = g.reshape(B, heads, Q, P, hd)
+        out = out + (w.permute(0, 2, 1, 3)[..., None] * g).sum(3)
+    return out.permute(0, 2, 1, 3).reshape(B, Q, heads * hd)
 
 
 def multi_scale_deformable_attention(

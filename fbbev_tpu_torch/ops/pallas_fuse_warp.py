@@ -121,7 +121,11 @@ def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
     Returns ``(slots (B, Y, X, Z, T*C), new_hist)`` without the epilogue,
     ``(fused_part (B, Y, X, Z, F) f32, new_hist)`` with it.  CUDA tensors
     launch the kernel (bf16 history); CPU tensors take the plain version.
+    Raises ``RuntimeError`` when grad mode is on and an input requires
+    grad: training fuses history with ``FBOCC.fuse_history_aged``.
     """
+    _cuda.refuse_grad("fuse_warp (K1)", hist, curr, mat,
+                      *(epilogue or {}).values())
     if not hist.is_cuda:
         return fuse_warp_plain(hist, curr, mat, start, hsel, epilogue)
     global launches

@@ -15,8 +15,8 @@ SXM (3.35 TB/s), as ``chip_smoke.py`` computes it from its rig.  The
 TPU's one-hot slab blocking is not carried over: the H100 gathers rows at
 full speed.
 
-Plain version: :func:`lss_voxel_pool_precomputed`, the ``index_add_``
-scatter of the JAX package's ``ops/bev_pool.py:180``.
+Plain version: :func:`lss_voxel_pool_precomputed` (``ops/bev_pool.py``),
+the ``index_add`` scatter of the JAX package's ``ops/bev_pool.py:180``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 
 from fbbev_tpu_torch import host_lib
 from fbbev_tpu_torch.ops import _cuda
+from fbbev_tpu_torch.ops.bev_pool import lss_voxel_pool_precomputed
 
 launches = 0
 
@@ -84,26 +85,14 @@ def plan_pool(ranks_bev: np.ndarray, B: int, N: int, D: int, fH: int,
         grid_size=(nx, ny, nz), batch=B)
 
 
-def lss_voxel_pool_precomputed(ranks_bev: torch.Tensor, depth: torch.Tensor,
-                               feat: torch.Tensor,
-                               grid_size: Sequence[int]) -> torch.Tensor:
-    """Plain version: ``depth (B, N, D, fH, fW)``, ``feat (B, N, fH, fW,
-    C)``, ranks in natural point order -> ``(B, Y, X, Z, C)``."""
-    B, N, D, fH, fW = depth.shape
-    C = feat.shape[-1]
-    nx, ny, nz = (int(g) for g in grid_size)
-    V = B * nz * ny * nx
-    prod = (depth[..., None] * feat[:, :, None]).reshape(-1, C)
-    out = torch.zeros(V + 1, C, dtype=prod.dtype, device=prod.device)
-    out.index_add_(0, ranks_bev.to(torch.int64), prod)
-    return out[:V].reshape(B, nz, ny, nx, C).permute(0, 2, 3, 1, 4)
-
-
 def lss_voxel_pool_planned(plan: PoolPlan, depth: torch.Tensor,
                            feat: torch.Tensor) -> torch.Tensor:
     """``depth (B, N, D, fH, fW)`` f32, ``feat (B, N, fH, fW, C)`` f32 ->
     ``(B, Y, X, Z, C)`` f32.  CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    take the plain version.  Raises ``RuntimeError`` when grad mode is on
+    and an input requires grad: training pools with
+    :func:`fbbev_tpu_torch.ops.bev_pool.lss_voxel_pool`."""
+    _cuda.refuse_grad("lss_voxel_pool_planned (K2)", depth, feat)
     if not depth.is_cuda:
         return lss_voxel_pool_precomputed(plan.ranks, depth, feat,
                                           plan.grid_size)

@@ -20,7 +20,8 @@ grid-tiled path computes.
 
 Rounding: the TPU kernel rounds the combined weight tent_x * tent_y * attn
 to the value dtype before its f32-accumulated product; the kernel and the
-plain version :func:`deformable_sample_attend_plain` do the same.
+plain version :func:`deformable_sample_attend_plain`
+(``ops/deform_attn.py::deformable_sample_attend``) do the same.
 """
 
 from __future__ import annotations
@@ -31,43 +32,30 @@ from typing import Tuple
 import torch
 
 from fbbev_tpu_torch.ops import _cuda
-from fbbev_tpu_torch.ops.deform_attn import bilinear_corners
+# the plain version is the differentiable gather form training uses
+from fbbev_tpu_torch.ops.deform_attn import \
+    deformable_sample_attend as deformable_sample_attend_plain
 
-launches = 0
-
-
-def deformable_sample_attend_plain(value: torch.Tensor,
-                                   spatial_shape: Tuple[int, int],
-                                   loc: torch.Tensor,
-                                   attn: torch.Tensor) -> torch.Tensor:
-    """Plain version.  value (B, H*W, heads, hd); loc (B, Q, heads, P, 2)
-    in [0, 1]; attn (B, Q, heads, P) -> (B, Q, heads*hd) f32."""
-    B, HW, heads, hd = value.shape
-    H, W = spatial_shape
-    Q, P = loc.shape[1], loc.shape[3]
-    vh = value.permute(0, 2, 1, 3)                     # (B, heads, HW, hd)
-    out = torch.zeros(B, heads, Q, hd, dtype=torch.float32,
-                      device=value.device)
-    for idx, w in bilinear_corners(loc.float(), H, W):
-        w = (w * attn.float()).to(value.dtype).float()
-        idx = idx.permute(0, 2, 1, 3).reshape(B, heads, Q * P, 1)
-        g = torch.gather(vh, 2, idx.expand(-1, -1, -1, hd)).float()
-        g = g.reshape(B, heads, Q, P, hd)
-        out += (w.permute(0, 2, 1, 3)[..., None] * g).sum(3)
-    return out.permute(0, 2, 1, 3).reshape(B, Q, heads * hd)
+launches = 0           # spatial cross-attention launches
+selfattn_launches = 0  # BEV self-attention launches (``selfattn=True``)
 
 
 def deformable_sample_attend(value: torch.Tensor,
                              spatial_shape: Tuple[int, int],
                              loc: torch.Tensor,
-                             attn: torch.Tensor) -> torch.Tensor:
+                             attn: torch.Tensor,
+                             selfattn: bool = False) -> torch.Tensor:
     """Shapes as :func:`deformable_sample_attend_plain`.  CUDA tensors
     launch the kernel (value bf16 or f32); CPU tensors take the plain
-    version."""
+    version.  ``selfattn`` marks the BEV self-attention's call, counted in
+    ``selfattn_launches`` instead of ``launches``.  Raises
+    ``RuntimeError`` when grad mode is on and an input requires grad:
+    training samples through the plain version itself."""
+    _cuda.refuse_grad("deformable_sample_attend (K3)", value, loc, attn)
     if not value.is_cuda:
         return deformable_sample_attend_plain(value, spatial_shape, loc,
                                               attn)
-    global launches
+    global launches, selfattn_launches
     B, HW, heads, hd = value.shape
     H, W = spatial_shape
     Q, P = loc.shape[1], loc.shape[3]
@@ -90,5 +78,8 @@ def deformable_sample_attend(value: torch.Tensor,
     _cuda.check(fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
                    out.data_ptr(), int(value.dtype == torch.bfloat16), B, H,
                    W, Q, heads, P, hd, _cuda.stream_ptr(value)), "msda")
-    launches += 1
+    if selfattn:
+        selfattn_launches += 1
+    else:
+        launches += 1
     return out

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from fbbev_tpu_torch import geometry
+from fbbev_tpu_torch.ops import pallas_conv as K7
 from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
 from fbbev_tpu_torch.ops import pallas_pool as K2
 from fbbev_tpu_torch.ops import pallas_sample as K3
@@ -26,6 +27,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -85,3 +87,109 @@ def test_k1_kernel_matches_plain(dev, epilogue):
         assert (got - want).abs().max().item() < 2e-2
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_kernel_matches_plain(dev, dtype):
+    """Forward, and input and weight gradients through ``Conv3x3``, on a
+    ragged tile (H, W not multiples of the 8 x 16 tile; Cout 80 not a
+    multiple of 64).  f32: 1e-4; bf16: 2e-2 of max(1, |value|), one bf16
+    rounding of f32 sums taken in another order."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn(2, 64, 13, 21, generator=g).to(dev, dtype)
+    w = (torch.randn(80, 64, 3, 3, generator=g) / 24).to(dev, dtype)
+    gy = torch.randn(2, 80, 13, 21, generator=g).to(dev, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+    def close(got, want):
+        got, want = got.float(), want.float()
+        return ((got - want).abs() / want.abs().clamp(min=1.0)).max() <= tol
+
+    f0, d0 = K7.launches, K7.dgrad_launches
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = K7.conv3x3(xg, wg)
+    gx, gw = torch.autograd.grad(y, (xg, wg), gy)
+    assert (K7.launches, K7.dgrad_launches) == (f0 + 1, d0 + 1)
+    assert close(y, K7.conv3x3_s1_plain(x, w))
+    assert close(gx, K7.conv3x3_s1_plain(gy, w.flip(2, 3).transpose(0, 1)))
+    assert close(gw, K7._wgrad(x, gy))
+
+
+def test_k7_zslab_matches_conv3d(dev):
+    """``Conv3dZSlabK7`` on the card (three K7 forward and three dgrad
+    launches) vs ``F.conv3d``, f32: output and input, weight and bias
+    gradients to 1e-4 of max(1, |value|)."""
+    import torch.nn.functional as F
+    from fbbev_tpu_torch.models.layers import conv
+    torch.manual_seed(3)
+    m = conv(3, 64, 32, 3, 1, 1, bias=True, pallas3x3=True).to(dev)
+    x = torch.randn(2, 64, 10, 13, 3, device=dev, requires_grad=True)
+    gy = torch.randn(2, 32, 10, 13, 3, device=dev)
+    f0, d0 = K7.launches, K7.dgrad_launches
+    y = m(x)
+    got = (y,) + torch.autograd.grad(y, (x, m.weight, m.bias), gy)
+    assert (K7.launches, K7.dgrad_launches) == (f0 + 3, d0 + 3)
+    want = F.conv3d(x, m.weight, m.bias, padding=1)
+    ref = (want,) + torch.autograd.grad(want, (x, m.weight, m.bias), gy)
+    for a, b in zip(got, ref):
+        assert ((a - b).abs() / b.abs().clamp(min=1.0)).max() <= 1e-4
+
+
+def test_small_train_steps_on_card(dev):
+    """Two train steps of the small config in bf16 with K7 and stage
+    checkpointing: finite metrics, K7 launched in forward and backward,
+    none of K1-K3."""
+    from fbbev_tpu_torch.models import FBOCC
+    from fbbev_tpu_torch.models.fbocc import init_temporal_state
+    from fbbev_tpu_torch.train import Trainer
+    small = dict(
+        grid_config={"x": (-40.0, 40.0, 4.0), "y": (-40.0, 40.0, 4.0),
+                     "z": (-1.0, 5.4, 0.8), "depth": (2.0, 42.0, 0.5)},
+        bevformer_grid_config={"x": (-40.0, 40.0, 4.0),
+                               "y": (-40.0, 40.0, 4.0),
+                               "z": (-1.0, 5.4, 1.6)},
+        input_size=(64, 128), num_cams=2, history_cat_num=2,
+        single_bev_num_channels=64, history_cat_conv_out_channels=128,
+        depth_mid_channels=64, voxel_channels=(16, 32, 64),
+        voxel_out_channels=32, max_queries_per_cam=256)
+    model = FBOCC(**small, dtype=torch.bfloat16, device=dev,
+                  pallas3x3=True, remat=True,
+                  generator=torch.Generator().manual_seed(3))
+    trainer = Trainer(model)
+    g = torch.Generator().manual_seed(4)
+    rng = np.random.RandomState(5)
+    # two cameras facing +x and -x at 1.5 m (test_torch_slice's rig)
+    rots = [np.stack([[np.sin(th), -np.cos(th), 0.0], [0.0, 0.0, -1.0],
+                      [np.cos(th), np.sin(th), 0.0]], 1)
+            for th in (0.0, np.pi)]
+    cam = dict(rots=np.stack(rots),
+               trans=np.array([[0.0137, 0.0137, 1.5137],
+                               [0.1137, 0.0637, 1.5137]]),
+               intrins=np.tile([[100.0, 0, 64], [0, 100.0, 32], [0, 0, 1]],
+                               (2, 1, 1)),
+               post_rots=np.tile(np.eye(3), (2, 1, 1)),
+               post_trans=np.zeros((2, 3)))
+    batch = {k: torch.tensor(np.asarray(v, np.float32))[None].to(dev)
+             for k, v in cam.items()}
+    occ = torch.from_numpy(rng.randint(0, 19, (1, 40, 40, 16)))
+    depth = torch.from_numpy(rng.rand(1, 2, 64, 128).astype(np.float32) * 40)
+    batch.update(
+        bda=torch.eye(3, device=dev)[None],
+        imgs=torch.randn(1, 2, 64, 128, 3, generator=g).to(dev),
+        start_of_sequence=torch.tensor([True], device=dev),
+        sequence_group_idx=torch.zeros(1, dtype=torch.int32, device=dev),
+        curr_to_prev_ego_rt=torch.eye(4, device=dev)[None],
+        gt_occupancy=occ.to(dev), gt_depth=depth.to(dev))
+    tstate = init_temporal_state(1, (20, 20, 8), 2, 64,
+                                 dtype=torch.bfloat16, device=dev)
+    before = [m.launches for m in (K1, K2, K3)] + [K3.selfattn_launches]
+    f0, d0 = K7.launches, K7.dgrad_launches
+    state = trainer.init_state()
+    for step in range(2):
+        state, tstate, met = trainer.train_step(state, tstate, batch,
+                                                do_history=step > 0)
+        assert all(np.isfinite(float(v)) for v in met.values()), met
+    torch.cuda.synchronize()
+    assert K7.launches > f0 and K7.dgrad_launches > d0
+    assert [m.launches for m in (K1, K2, K3)] + [
+        K3.selfattn_launches] == before

@@ -1,5 +1,5 @@
-"""Plain versions of the port's three kernels against the JAX package's
-TPU kernels, run through the Pallas interpreter on CPU.
+"""Plain versions of the port's kernels against the JAX package's TPU
+kernels, run through the Pallas interpreter on CPU.
 
 * K2 (voxel pool) vs ``pallas_pool.lss_voxel_pool_planned``; plus the
   sorted interval table the CUDA kernel walks, emulated in numpy.
@@ -9,6 +9,12 @@ TPU kernels, run through the Pallas interpreter on CPU.
 * K1 (fused history warp) vs ``pallas_fuse_warp.fuse_warp``, with and
   without the conv epilogue, over a stream with a mid-stream sequence
   start and small ego motion inside the TPU kernel's locality contract.
+* K7 (3x3 conv) vs ``pallas_conv.conv3x3_s1`` at the shapes of
+  ``tests/test_pallas_conv.py``, and its custom backward vs ``jax.grad``
+  of ``pallas_conv.conv3x3``.
+* K7's z-slab route of the 3x3x3 convs (``Conv3dZSlabK7``) vs the JAX
+  package's ``Conv3DZSlab``, forward and gradients.
+* The wrappers of K1-K3 and K7's forward refuse inputs that require grad.
 
 Tolerances are float32 rounding of differently ordered sums (stated per
 test); the bf16 cases allow the bf16 rounding of the tent weights both
@@ -20,11 +26,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from fbbev_tpu.ops import pallas_conv as jconv
 from fbbev_tpu.ops import pallas_fuse_warp as jfw
 from fbbev_tpu.ops import pallas_pool as jpool
 from fbbev_tpu.ops import pallas_sample as jsample
 from fbbev_tpu_torch import geometry as tgeo
 from fbbev_tpu_torch.ops import deform_attn as tda
+from fbbev_tpu_torch.ops import pallas_conv as K7
 from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
 from fbbev_tpu_torch.ops import pallas_pool as K2
 from fbbev_tpu_torch.ops import pallas_sample as K3
@@ -210,3 +220,195 @@ def test_k1_plain_bf16_history_matches_fuse_warp():
         assert (d <= 2.0 ** -7 * np.maximum(np.abs(wh), 1e-3)).all()
         want = np.asarray(want)
         assert np.abs(got.numpy() - want).max() <= 1e-2 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------- K7
+def _k7_inputs(rng, B, H, W, Cin, Cout):
+    """NHWC / HWIO numpy inputs as test_pallas_conv.py makes them."""
+    x = rng.randn(B, H, W, Cin).astype(np.float32)
+    w = (rng.randn(3, 3, Cin, Cout) * 0.05).astype(np.float32)
+    return x, w
+
+
+def _nchw(x):
+    return torch.from_numpy(x).permute(0, 3, 1, 2)
+
+
+def _oihw(w):
+    return torch.from_numpy(w).permute(3, 2, 0, 1)
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout", [
+    (1, 16, 16, 64, 64),
+    (2, 20, 28, 64, 128),
+    (3, 8, 24, 128, 64),
+])
+def test_k7_plain_matches_pallas_conv(B, H, W, Cin, Cout):
+    """f32: 1e-5 (sums of 9*Cin products in another order; outputs O(1)).
+    The module's gate agrees with the JAX one at these shapes."""
+    x, w = _k7_inputs(np.random.RandomState(0), B, H, W, Cin, Cout)
+    want = np.asarray(jconv.conv3x3_s1(jnp.asarray(x), jnp.asarray(w),
+                                       interpret=True))
+    got = K7.conv3x3_s1(_nchw(x), _oihw(w)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert K7.supports((B, Cin, H, W), Cout) == jconv.supports(
+        (B, H, W, Cin), (3, 3), (1, 1), "SAME", (1, 1))
+
+
+def test_k7_plain_bf16_matches_pallas_conv():
+    """bf16 in and out, f32 accumulation on both sides: each output is the
+    same f32 sum rounded once to bf16, so an element may differ by one
+    bf16 ulp (2^-7 of its magnitude) where the sums round differently, on
+    under 1% of them."""
+    x, w = _k7_inputs(np.random.RandomState(1), 1, 16, 16, 64, 64)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    wb = jnp.asarray(w).astype(jnp.bfloat16)
+    want = np.asarray(jconv.conv3x3_s1(xb, wb, interpret=True).astype(
+        jnp.float32))
+    got = K7.conv3x3_s1(_nchw(x).to(torch.bfloat16),
+                        _oihw(w).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    d = np.abs(got.permute(0, 2, 3, 1).float().numpy() - want)
+    assert (d <= 2.0 ** -7 * np.maximum(np.abs(want), 1e-3)).all()
+    assert (d > 0).mean() < 1e-2
+
+
+def test_k7_custom_backward_matches_jax_grad():
+    """``Conv3x3``'s backward (dgrad on the kernel's plain version, wgrad
+    as nine f32 contractions) vs ``jax.grad`` of the TPU kernel's custom
+    VJP, to test_pallas_conv.py's tolerances (1e-3; wgrad atol 1e-2)."""
+    rng = np.random.RandomState(2)
+    x, w = _k7_inputs(rng, 2, 12, 16, 64, 64)
+
+    def loss(x, w):
+        return jnp.sum(jconv.conv3x3(x, w) ** 2)
+
+    gx_j, gw_j = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                                jnp.asarray(w))
+    xt = _nchw(x).requires_grad_()
+    wt = _oihw(w).requires_grad_()
+    y = K7.conv3x3(xt, wt)
+    gx_t, gw_t = torch.autograd.grad((y ** 2).sum(), (xt, wt))
+    np.testing.assert_allclose(gx_t.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(gx_j), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(gw_t.permute(2, 3, 1, 0).numpy(),
+                               np.asarray(gw_j), rtol=1e-3, atol=1e-2)
+
+
+def test_k7_module_routes_by_the_gate():
+    """``Conv3x3K7`` runs K7 (its autograd node) where the gate holds --
+    Cin % 64 == 0, H >= 4, W >= 8 -- and ``nn.Conv2d`` elsewhere, with
+    the same output."""
+    from fbbev_tpu_torch.models.layers import conv
+    torch.manual_seed(0)
+    for cin, hw, routed in ((64, (8, 16), True), (32, (8, 16), False),
+                            (64, (2, 16), False)):
+        m = conv(2, cin, 32, 3, 1, 1, pallas3x3=True)
+        x = torch.randn(2, cin, *hw, requires_grad=True)
+        y = m(x)
+        assert (type(y.grad_fn).__name__.startswith("Conv3x3")) == routed
+        want = torch.nn.functional.conv2d(x, m.weight, padding=1)
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,yxz,routed", [
+    (64, (8, 12, 3), True), (32, (8, 12, 3), False), (64, (8, 6, 3), False),
+])
+def test_k7_zslab_module_routes_by_the_gate(monkeypatch, cin, yxz, routed):
+    """``Conv3dZSlabK7`` sends its three z-slabs through K7 where the gate
+    holds for a (B*Z, Cin, Y, X) slab -- Cin % 64 == 0, Y >= 4, X >= 8,
+    as ``_pallas3x3_eligible`` on the JAX z-slab -- and is ``nn.Conv3d``
+    elsewhere, with the same output and gradients (f32, 1e-4)."""
+    from fbbev_tpu_torch.models.layers import Conv3dZSlabK7, conv
+    calls = []
+    real = K7.conv3x3
+    monkeypatch.setattr(K7, "conv3x3",
+                        lambda x, w: calls.append(x.shape) or real(x, w))
+    torch.manual_seed(0)
+    m = conv(3, cin, 32, 3, 1, 1, bias=True, pallas3x3=True)
+    assert isinstance(m, Conv3dZSlabK7)
+    x = torch.randn(2, cin, *yxz, requires_grad=True)
+    y = m(x)
+    Y, X, Z = yxz
+    assert calls == ([(2 * Z, cin, Y, X)] * 3 if routed else [])
+    want = torch.nn.functional.conv3d(x, m.weight, m.bias, padding=1)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    gy = torch.randn_like(want)
+    got = torch.autograd.grad(y, (x, m.weight, m.bias), gy)
+    ref = torch.autograd.grad(want, (x, m.weight, m.bias), gy)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_k7_zslab_matches_jax_conv3d_zslab():
+    """``Conv3dZSlabK7`` on K7's plain version vs the JAX package's
+    ``Conv3DZSlab`` (f32, the same three z-shifted 2D convs summed):
+    forward 1e-5 (sums of 9*Cin products in another order, O(1)
+    outputs); input and weight gradients of sum(y^2) to
+    test_pallas_conv.py's tolerances (1e-3; weight atol 1e-2)."""
+    from fbbev_tpu.models.layers import Conv3DZSlab
+    from fbbev_tpu_torch.models.layers import Conv3dZSlabK7
+    rng = np.random.RandomState(3)
+    B, Y, X, Z, Cin, Cout = 1, 8, 12, 3, 64, 32
+    x = rng.randn(B, Y, X, Z, Cin).astype(np.float32)
+    k = (rng.randn(3, 3, 3, Cin, Cout) / np.sqrt(27 * Cin)).astype(
+        np.float32)
+    b = (rng.randn(Cout) * 0.1).astype(np.float32)
+    jm = Conv3DZSlab(Cout, use_bias=True)
+
+    def loss(x, k, b):
+        return jnp.sum(jm.apply({"params": {"kernel": k, "bias": b}},
+                                x) ** 2)
+
+    y_j = np.asarray(jm.apply({"params": {"kernel": jnp.asarray(k),
+                                          "bias": jnp.asarray(b)}},
+                              jnp.asarray(x)))
+    gx_j, gk_j = jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    m = Conv3dZSlabK7(Cin, Cout, 3, padding=1, bias=True)
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(k).permute(4, 3, 0, 1, 2))
+        m.bias.copy_(torch.from_numpy(b))
+    xt = torch.from_numpy(x).permute(0, 4, 1, 2, 3).requires_grad_()
+    y = m(xt)
+    np.testing.assert_allclose(y.detach().permute(0, 2, 3, 4, 1).numpy(),
+                               y_j, rtol=1e-5, atol=1e-5)
+    gx, gw = torch.autograd.grad((y ** 2).sum(), (xt, m.weight))
+    np.testing.assert_allclose(gx.permute(0, 2, 3, 4, 1).numpy(),
+                               np.asarray(gx_j), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(gw.permute(2, 3, 4, 1, 0).numpy(),
+                               np.asarray(gk_j), rtol=1e-3, atol=1e-2)
+
+
+def _requires_grad_calls():
+    """(name, call) of every wrapper of a kernel without a backward, with
+    one input that requires grad."""
+    g = torch.randn(1, 8, 2, 4, requires_grad=True)
+    plan = K2.plan_pool(np.zeros(1 * 2 * 3 * 2 * 4, np.int32), 1, 2, 3, 2,
+                        4, (4, 4, 2))
+    mat = torch.eye(4)[None]
+    return [
+        ("K1", lambda: K1.fuse_warp(
+            torch.randn(1, 2, 4, 4, 16), torch.randn(1, 4, 4, 2, 8,
+                                                     requires_grad=True),
+            mat, torch.tensor([False]), torch.tensor([0]))),
+        ("K2", lambda: K2.lss_voxel_pool_planned(
+            plan, torch.rand(1, 2, 3, 2, 4, requires_grad=True),
+            torch.randn(1, 2, 2, 4, 8))),
+        ("K3", lambda: K3.deformable_sample_attend(
+            torch.randn(1, 8, 2, 4), (2, 4), torch.rand(1, 3, 2, 2, 2),
+            torch.rand(1, 3, 2, 2, requires_grad=True))),
+        ("K7", lambda: K7.conv3x3_s1(g, torch.randn(8, 8, 3, 3))),
+    ]
+
+
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K7"])
+def test_wrappers_refuse_inputs_that_require_grad(which):
+    """A kernel without a backward would return a tensor with no
+    ``grad_fn`` and cut the graph silently: the wrapper raises instead,
+    and runs under ``torch.no_grad()``."""
+    call = dict(_requires_grad_calls())[which]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():
+        call()

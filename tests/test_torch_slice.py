@@ -43,6 +43,11 @@ SMALL = dict(grid_config=GRID, bevformer_grid_config=BF_GRID,
 CAM_KEYS = ("rots", "trans", "intrins", "post_rots", "post_trans", "bda")
 
 
+# sub-cell offset of the camera translations: keeps every frustum point of
+# the rig off the voxel faces (see assert_off_voxel_faces)
+RIG_OFFSET = 0.0137
+
+
 def rig(N=2, H=64, W=128, f=100.0):
     """N horizontal cameras around the ego at 1.5 m, (1, N, ...) numpy."""
     rots, trans, intr = [], [], []
@@ -51,7 +56,8 @@ def rig(N=2, H=64, W=128, f=100.0):
         fwd = [np.cos(th), np.sin(th), 0.0]
         right = [np.sin(th), -np.cos(th), 0.0]
         rots.append(np.stack([right, [0.0, 0.0, -1.0], fwd], 1))
-        trans.append([0.1 * n, 0.05 * n, 1.5])
+        trans.append([0.1 * n + RIG_OFFSET, 0.05 * n + RIG_OFFSET,
+                      1.5 + RIG_OFFSET])
         intr.append([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
     f32 = (lambda a: np.asarray(a, np.float32))
     return dict(rots=f32(rots)[None], trans=f32(trans)[None],
@@ -67,6 +73,23 @@ def jax_cam(cam):
 
 def torch_cam(cam):
     return tgeo.CamParams(**{k: torch.from_numpy(cam[k]) for k in CAM_KEYS})
+
+
+def assert_off_voxel_faces(cam, grid=GRID, input_size=(64, 128),
+                           margin=1e-4):
+    """No frustum point of the rig lies within ``margin`` cells of a voxel
+    face, in the JAX package's float32 ego coordinates.  XLA and PyTorch
+    round the lifting einsums differently (~1e-7 m), so a point on a face
+    could land in either voxel; with this margin the voxel ranks of the
+    two packages are equal on any machine."""
+    from fbbev_tpu.models.lss import LSSViewTransformer3D
+    fp = LSSViewTransformer3D(grid, input_size, 16)
+    coor = np.asarray(jgeo.frustum_to_ego(jnp.asarray(fp.frustum),
+                                          jax_cam(cam)))
+    c = ((coor - np.asarray(fp.grid_lower, np.float32))
+         / np.asarray(fp.grid_interval, np.float32))
+    gap = np.abs(c - np.round(c)).min()
+    assert gap > margin, f"a frustum point lies {gap} cells from a face"
 
 
 def flow(step):
@@ -148,6 +171,7 @@ def test_serving_stream_matches_jax(models, monkeypatch):
         monkeypatch.setattr(mod, fn, (lambda *a, _r=real, _n=fn, **k: (
             traced.append(_n), _r(*a, **k))[1]))
     cam = rig()
+    assert_off_voxel_faces(cam)
     jp = JaxPipeline(jm, v, jax_cam(cam))
     assert jp.pool_plan is not None            # JAX runs its pool kernel
     tp = FixedRigPipeline(tm, torch_cam(cam))
