@@ -25,15 +25,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    synthetic batch: 3 steps of fresh streams, then 3 continuing steps
    carrying the temporal state; checks losses, gradients in every
    module, moved params / BatchNorm statistics / EMA, and that K7 -- and
-   none of K1-K3 -- launched in forward and backward; prints ms per step
-   and peak device memory.
+   none of the serving kernels -- launched in forward and backward; prints
+   ms per step and peak device memory.
+8. Holds K5 (the age-ordered history warp), K6 (the 3x3x3 conv), K8 (the
+   occ tail) and K9 (the occ blend) against their plain versions at the
+   flagship shapes, bf16 and f32, and times kernel, plain version and
+   library call.  Runs two more full-width streams with the model's route
+   arguments: ``fuse_warp=False, pallas_conv3d=True, occ_tail=True``
+   (6 frames: K2, K3 twice, K5, K6 sixteen times and K8 per frame, no K1)
+   and ``coarse_pred=False, occ_fuse=True`` (3 frames: K1 and K9 per
+   frame), each with its launch counts set to 0 just before it and read
+   just after, and the small card-vs-CPU label check for the first.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and prints
-the flagship frame time and its per-stage and per-kernel device times,
-then the flagship train step's time and its device time by kernel.
+the flagship frame time and its per-stage and per-kernel device times, for
+the kernel-routed configuration and the default one, then the flagship
+train step's time and its device time by kernel.
 """
 
 import json
@@ -53,6 +63,7 @@ F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
 
 FRAMES = 6
+T0 = time.perf_counter()
 TRAIN_STEPS = (3, 3)  # fresh-stream steps, then continuing steps
 
 # K7's launches in one forward pass of the flagship (pallas_conv.supports
@@ -278,87 +289,241 @@ def check_k1(dev, epilogue=True):
                  bound(nbytes, f32_flops=warp_flops, tc_flops=tc), None)
 
 
-def unported_bounds(dev):
-    """Bounds of the TPU kernels not ported yet (K4-K6, K8-K10), from the
-    flagship shapes: bf16 activations, f32 where the TPU kernel keeps f32;
-    bytes = inputs read once + outputs written once.  K5 and K6 also get
-    the time of the one PyTorch call that computes their function."""
-    def conv(n, v, cin, cout, k, bpe=2):
-        # n convs over v output voxels/pixels each, k taps
-        return (n * (v * (cin + cout) * bpe + k * cin * cout * bpe),
-                n * 2.0 * v * k * cin * cout)
-    rows = []
-    # K4: BEV self-attention, value (1,10000,8,10) bf16, loc/attn f32, P=4
-    q = 10000
-    rows.append(("K4 pallas_selfattn", q * 80 * 2 + q * 32 * 3 * 4
-                 + q * 80 * 4, 0.0, q * 80 * 4 * 4 * 2.0))
-    # K5: warp alone, (1,8,100,100,1280) bf16 in and out, 8 taps
-    v = 8 * 100 * 100
-    rows.append(("K5 pallas_warp", 2 * v * 1280 * 2, 0.0,
-                 v * 1280 * 8 * 2.0))
-    # K6: the stride-1 3x3x3 convs of the 3D encoder, FPN3D and occ head
-    c6 = [conv(4, 80000, 64, 64, 27), conv(3, 10000, 128, 128, 27),
-          conv(3, 1250, 256, 256, 27), conv(1, 80000, 256, 256, 27),
-          conv(1, 10000, 256, 256, 27), conv(1, 1250, 256, 256, 27),
-          conv(1, 80000, 256, 128, 27), conv(1, 10000, 256, 128, 27),
-          conv(1, 1250, 256, 128, 27)]
-    rows.append(("K6 pallas_conv3d", sum(c[0] for c in c6),
-                 sum(c[1] for c in c6), 0.0))
-    # K8: occ tail, four 64-ch levels (bf16, native sizes) + blend weights
-    # (1,200,200,16,4) -> logits (1,200,200,16,19) f32
-    full = 200 * 200 * 16
-    lv = full + 80000 + 10000 + 1250
-    rows.append(("K8 pallas_occ_tail", lv * 64 * 2 + full * 4 * 2
-                 + full * 19 * 4, full * 64 * 19 * 2.0,
-                 full * 4 * 64 * 8 * 2.0))
-    # K9: upsample + blend of four 128-ch levels -> (1,200,200,16,128) bf16
-    rows.append(("K9 pallas_occ_fuse", lv * 128 * 2 + full * 4 * 2
-                 + full * 128 * 2, 0.0, full * 4 * 128 * 8 * 2.0))
-    # K10: K3's math from precomputed corners (4 x int32 index + f32
-    # weight per sample) at the cross-attention shapes
+def unported_bounds():
+    """The bound of the one TPU kernel not ported yet, K10 (K3's math from
+    precomputed corners: 4 x int32 index + f32 weight per sample) at the
+    cross-attention shapes; bytes = inputs read once + outputs written
+    once."""
     s3 = 6 * 4096 * 8 * 8
-    rows.append(("K10 pallas_deform", 6 * 704 * 80 * 2 + s3 * 4 * 8
-                 + s3 * 4 + 6 * 4096 * 80 * 4, 0.0,
-                 6 * 4096 * 80 * 8 * 4 * 2.0))
-    for name, nbytes, tc, f32 in rows:
-        b = bound(nbytes, f32_flops=f32, tc_flops=tc)
-        log(f"bound {name}: {b[0]:.4f} ms ({b[1]}; {nbytes / 1e6:.1f} MB, "
-            f"{(tc + f32) / 1e9:.2f} GFLOP)")
-    library_k5_k6(dev)
+    nbytes = 6 * 704 * 80 * 2 + s3 * 4 * 8 + s3 * 4 + 6 * 4096 * 80 * 4
+    f32 = 6 * 4096 * 80 * 8 * 4 * 2.0
+    b = bound(nbytes, f32_flops=f32)
+    log(f"bound K10 pallas_deform: {b[0]:.4f} ms ({b[1]}; "
+        f"{nbytes / 1e6:.1f} MB, {f32 / 1e9:.2f} GFLOP)")
 
 
-def library_k5_k6(dev):
-    """Library yardsticks of two unported kernels: K5's warp as one 5-D
-    ``F.grid_sample`` (align_corners=True) of the bf16 history on a
-    precomputed grid, and K6's stride-1 3x3x3 convs as ``F.conv3d``
-    (cuDNN, bf16, channels-last) at the path's shapes and counts."""
+def flagship_flow_matrix(dev):
+    """The flagship's (1, 4, 4) index-unit history flow for flow(1)."""
+    import torch
+    from fbbev_tpu_torch import geometry
+    dx, bx, _ = geometry.gen_dx_bx((-40, 40, 0.8), (-40, 40, 0.8),
+                                   (-1, 5.4, 0.8))
+    f2b = torch.from_numpy(geometry.feat2bev_matrix(dx, bx)).to(dev)
+    eye = torch.eye(4, device=dev)[None]
+    c2p = torch.from_numpy(flow(1)).to(dev)
+    return geometry.flow_matrix_from_grid_args(eye, eye, c2p, f2b)
+
+
+def check_k5(dev):
+    """K5 at the flagship: the age-ordered history (1,8,100,100,1280) bf16
+    warped by flow(1) into (1,100,100,8,1280); f32 at 256 channels.
+    Tolerance: the kernel rounds each tent weight to the history type as
+    the TPU kernel does, the plain version (``grid_sample_3d``) keeps it
+    f32, both round the sum once: 2^-7 of the largest |history| in bf16;
+    1e-3 in f32 (the kernel takes source coordinates in index units, the
+    plain version through the [-1, 1] grid: f32 rounding moves a
+    coordinate by ~1e-5 cells at 100 cells, times field slopes of up to
+    ~10 per cell on random data).  Library:
+    one 5-D ``F.grid_sample`` on the same history and the flow's grid."""
     import torch
     import torch.nn.functional as F
-    g = torch.Generator().manual_seed(7)
-    hist = torch.randn(1, 1280, 8, 100, 100, generator=g).to(
-        dev, torch.bfloat16)
-    grid = (torch.rand(1, 8, 100, 100, 3, generator=g) * 2 - 1).to(dev)
-    ms = cuda_time(lambda: F.grid_sample(
-        hist, grid.to(hist.dtype), mode="bilinear", padding_mode="zeros",
+    from fbbev_tpu_torch import geometry
+    from fbbev_tpu_torch.ops import pallas_warp as K5
+    g = torch.Generator().manual_seed(10)
+    mat = flagship_flow_matrix(dev)
+    for dt, C in ((torch.float32, 256), (torch.bfloat16, 1280)):
+        vol = torch.randn(1, 8, 100, 100, C, generator=g).to(dev, dt)
+        got = K5.warp_affine_3d(vol, mat)
+        want = K5.warp_affine_3d_plain(vol, mat)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (1e-3 if dt == torch.float32 else
+               2.0 ** -7 * vol.float().abs().max().item())
+        log(f"K5 {str(dt)[6:]} (1,8,100,100,{C}): max_abs_err {err:.3e} "
+            f"(tol {tol:.1e})")
+        if not err <= tol:
+            raise AssertionError(f"K5 differs from its plain version: {err}")
+    grid = geometry.flow_grid(mat, (8, 100, 100)).to(vol.dtype)
+    volc = vol.permute(0, 4, 1, 2, 3)                  # (N, C, D, H, W)
+    ms = cuda_time(lambda: K5.warp_affine_3d(vol, mat), iters=10)
+    plain_ms = cuda_time(lambda: K5.warp_affine_3d_plain(vol, mat), iters=3,
+                         warmup=1)
+    library_ms = cuda_time(lambda: F.grid_sample(
+        volc, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), iters=10)
-    log(f"library K5 F.grid_sample 5-D bf16 (1,1280,8,100,100): {ms:.4f} ms")
-    # (count, Y, X, Z, Cin, Cout) of the 3D encoder, FPN3D and occ head
-    c6 = [(4, 100, 100, 8, 64, 64), (3, 50, 50, 4, 128, 128),
-          (3, 25, 25, 2, 256, 256), (1, 100, 100, 8, 256, 256),
-          (1, 50, 50, 4, 256, 256), (1, 25, 25, 2, 256, 256),
-          (1, 100, 100, 8, 256, 128), (1, 50, 50, 4, 256, 128),
-          (1, 25, 25, 2, 256, 128)]
-    total = 0.0
-    for n, Y, X, Z, ci, co in c6:
-        x = torch.randn(1, ci, Y, X, Z, generator=g).to(
-            dev, torch.bfloat16).contiguous(
-                memory_format=torch.channels_last_3d)
-        w = (torch.randn(co, ci, 3, 3, 3, generator=g) / (27 * ci) ** 0.5
-             ).to(dev, torch.bfloat16).contiguous(
-                 memory_format=torch.channels_last_3d)
-        total += n * cuda_time(lambda: F.conv3d(x, w, padding=1), iters=10)
-    log(f"library K6 F.conv3d bf16, the path's 16 3x3x3 s1 convs: "
-        f"{total:.4f} ms")
+    nbytes = 2 * vol.numel() * 2
+    return entry("warp_affine", "fbbev_tpu_torch/csrc/fuse_warp.cu",
+                 "fbbev_tpu/ops/pallas_warp.py:190", err, tol, ms, plain_ms,
+                 bound(nbytes, f32_flops=2.0 * 8 * vol.numel()), library_ms)
+
+
+# K6's convs in one flagship frame: (count, Y, X, Z, Cin, Cout) of the 3D
+# ResNet (4 + 3 + 3), FPN3D (one per level) and the occ head (one per
+# level, 256 -> 128)
+K6_SHAPES = [(4, 100, 100, 8, 64, 64), (3, 50, 50, 4, 128, 128),
+             (3, 25, 25, 2, 256, 256), (1, 100, 100, 8, 256, 256),
+             (1, 50, 50, 4, 256, 256), (1, 25, 25, 2, 256, 256),
+             (1, 100, 100, 8, 256, 128), (1, 50, 50, 4, 256, 128),
+             (1, 25, 25, 2, 256, 128)]
+
+
+def check_k6(dev):
+    """K6 at each of its flagship shapes in bf16 (f32 at 25x25x2 256->256)
+    against the plain version (``F.conv3d`` in f32, no TF32); times of
+    kernel, plain version and cuDNN (``F.conv3d`` bf16, channels-last),
+    summed over the 16 convs of one frame.  Tolerance: 2e-2 of max(1, |y|)
+    in bf16 (both sum in f32 and round once), 1e-4 in f32;
+    ``max_abs_err`` is the largest absolute bf16 error, held against 2e-2
+    of max(1, max |y|)."""
+    import torch
+    import torch.nn.functional as F
+    from fbbev_tpu_torch.ops import pallas_conv3d as K6
+    g = torch.Generator().manual_seed(11)
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, flops=0.0)
+    err_abs, tol_abs, rel = 0.0, 0.0, 0.0
+    cl = torch.channels_last_3d
+    for n, Y, X, Z, ci, co in K6_SHAPES:
+        for dt in ((torch.bfloat16, torch.float32)
+                   if (Y, ci, co) == (25, 256, 256) else (torch.bfloat16,)):
+            x = torch.randn(1, ci, Y, X, Z, generator=g).to(
+                dev, dt).contiguous(memory_format=cl)
+            w = (torch.randn(co, ci, 3, 3, 3, generator=g)
+                 / (27 * ci) ** 0.5).to(dev, dt)
+            with torch.no_grad():
+                got = K6.conv3d_3x3x3(x, w).float()
+                want = K6.conv3d_3x3x3_plain(x, w).float()
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            e = (d / want.abs().clamp(min=1.0)).max().item()
+            tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+            log(f"K6 {str(dt)[6:]} {Y}x{X}x{Z} {ci}->{co}: relative err "
+                f"{e:.3e} (tol {tol:.0e}; absolute {d.max().item():.3e})")
+            if not e <= tol:
+                raise AssertionError(f"K6 differs from its plain version: "
+                                     f"{e} > {tol}")
+            if dt != torch.bfloat16:
+                continue
+            err_abs = max(err_abs, d.max().item())
+            tol_abs = max(tol_abs, tol * max(1.0, want.abs().max().item()))
+            rel = max(rel, e)
+            wl = w.contiguous(memory_format=cl)
+            with torch.no_grad():
+                t = [cuda_time(lambda: K6.conv3d_3x3x3(x, w), iters=10),
+                     cuda_time(lambda: K6.conv3d_3x3x3_plain(x, w), iters=3,
+                               warmup=1),
+                     cuda_time(lambda: F.conv3d(x, wl, padding=1), iters=10)]
+            log(f"K6 {Y}x{X}x{Z} {ci}->{co} x{n}: kernel {t[0]:.4f} plain "
+                f"{t[1]:.4f} cuDNN {t[2]:.4f} ms")
+            for k, v in zip(("ms", "plain", "lib"), t):
+                tot[k] += n * v
+            tot["bytes"] += n * (x.numel() * (ci + co) / ci + w.numel()) * 2
+            tot["flops"] += n * 2.0 * Y * X * Z * 27 * ci * co
+    b = bound(tot["bytes"], tc_flops=tot["flops"])
+    log(f"K6 over the 16 convs of a frame: kernel {tot['ms']:.4f} ms, "
+        f"cuDNN {tot['lib']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+        f"{tot['flops'] / 1e9:.1f} GFLOP)")
+    out = entry("conv3d", "fbbev_tpu_torch/csrc/conv3d.cu",
+                "fbbev_tpu/ops/pallas_conv3d.py:130", err_abs, tol_abs,
+                tot["ms"], tot["plain"], b, tot["lib"])
+    out["max_rel_err"] = rel
+    return out
+
+
+def occ_levels(dev, dt, C, g):
+    """The occ head's four levels at the flagship (1, C, 200/f, 200/f,
+    16/f), f = 1, 2, 4, 8, and softmax blend weights (1, 4, 200, 200,
+    16)."""
+    import torch
+    levels = [torch.randn(1, C, 200 // f, 200 // f, 16 // f,
+                          generator=g).to(dev, dt) for f in (1, 2, 4, 8)]
+    w = torch.softmax(torch.randn(1, 4, 200, 200, 16, generator=g),
+                      1).to(dev, dt)
+    return levels, w
+
+
+def check_k8(dev):
+    """K8 at the flagship: four 64-channel levels, bf16 (and f32), to
+    (1,200,200,16) labels through 19 classes.  The lerps, blend and
+    affine round at the same points in kernel and plain version; the
+    class product sums exact products in f32 in another order, so a logit
+    may differ by one rounding of its type: tolerance 2^-7 of max(1, max
+    |logit|) in bf16, 1e-5 in f32; labels must agree on >= 99.9% of
+    voxels.  The kernel is timed as the main path runs it (labels only)."""
+    import torch
+    from fbbev_tpu_torch.ops import pallas_occ_tail as K8
+    g = torch.Generator().manual_seed(12)
+    a = (torch.rand(64, generator=g) + 0.5).to(dev)
+    b = (torch.randn(64, generator=g) * 0.1).to(dev)
+    k2 = (torch.randn(64, 19, generator=g) / 8.0).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        levels, w = occ_levels(dev, dt, 64, g)
+        with torch.no_grad():
+            lab, lg = K8.occ_tail(levels, w, a, b, k2, return_logits=True)
+            wlab, wlg = K8.occ_tail_plain(levels, w, a, b, k2,
+                                          return_logits=True)
+        torch.cuda.synchronize()
+        err = (lg.float() - wlg.float()).abs().max().item()
+        scale = max(1.0, wlg.float().abs().max().item())
+        tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-5) * scale
+        agree = (lab == wlab).float().mean().item()
+        log(f"K8 {str(dt)[6:]}: logits max_abs_err {err:.3e} (tol "
+            f"{tol:.1e}), labels agree on {agree:.6f}")
+        if not (err <= tol and agree >= 0.999):
+            raise AssertionError(f"K8 differs from its plain version: {err},"
+                                 f" {agree}")
+    ms = cuda_time(lambda: K8.occ_tail(levels, w, a, b, k2), iters=10)
+    plain_ms = cuda_time(lambda: K8.occ_tail_plain(levels, w, a, b, k2),
+                         iters=3, warmup=1)
+    full = 200 * 200 * 16
+    nbytes = sum(lv.numel() for lv in levels) * 2 + w.numel() * 2 + full * 8
+    ops = blend_ops(64) + full * 64 * 3.0      # + BN affine and relu
+    return entry("occ_tail", "fbbev_tpu_torch/csrc/occ_tail.cu",
+                 "fbbev_tpu/ops/pallas_occ_tail.py:93", err, tol, ms,
+                 plain_ms, bound(nbytes, f32_flops=ops,
+                                 tc_flops=full * 64 * 19 * 2.0), None)
+
+
+def blend_ops(C):
+    """Operations of the upsample and blend at the flagship, C channels:
+    the least a separable upsample needs -- each three-op lerp at the
+    coarsest resolution it can run at (z at the level's y and x, then y,
+    then x at full resolution) -- plus a multiply and an add per level."""
+    full = 200 * 200 * 16
+    lerps = sum(1 + 1 / f + 1 / f ** 2 for f in (2, 4, 8))
+    return full * C * (3.0 * lerps + 2.0 * 4)
+
+
+def check_k9(dev):
+    """K9 at the flagship: four 128-channel levels blended into
+    (1,128,200,200,16), bf16 (and f32).  The same rounded operations in
+    the same order as the plain version: expected equal; tolerance one
+    bf16 ulp of the largest output (2^-7 of it), f32 1e-6."""
+    import torch
+    from fbbev_tpu_torch.ops import pallas_occ_fuse as K9
+    g = torch.Generator().manual_seed(13)
+    for dt in (torch.float32, torch.bfloat16):
+        levels, w = occ_levels(dev, dt, 128, g)
+        with torch.no_grad():
+            got = K9.fuse_multiscale(levels, w)
+            want = K9.fuse_multiscale_plain(levels, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-6) * \
+            want.float().abs().max().item()
+        log(f"K9 {str(dt)[6:]}: max_abs_err {err:.3e} (tol {tol:.1e}), "
+            f"{int((got != want).sum())} of {got.numel()} elements differ")
+        if not err <= tol:
+            raise AssertionError(f"K9 differs from its plain version: {err}")
+        del want
+    ms = cuda_time(lambda: K9.fuse_multiscale(levels, w), iters=10)
+    plain_ms = cuda_time(lambda: K9.fuse_multiscale_plain(levels, w),
+                         iters=3, warmup=1)
+    full = 200 * 200 * 16
+    nbytes = (sum(lv.numel() for lv in levels) + w.numel()
+              + full * 128) * 2
+    return entry("occ_fuse", "fbbev_tpu_torch/csrc/occ_tail.cu",
+                 "fbbev_tpu/ops/pallas_occ_fuse.py:80", err, tol, ms,
+                 plain_ms, bound(nbytes, f32_flops=blend_ops(128)), None)
 
 
 def check_k7(dev):
@@ -482,8 +647,7 @@ def run_train(dev):
     import torch
     from fbbev_tpu_torch.models import FBOCC
     from fbbev_tpu_torch.models.fbocc import init_temporal_state
-    from fbbev_tpu_torch.ops import pallas_conv, pallas_fuse_warp, \
-        pallas_pool, pallas_sample
+    from fbbev_tpu_torch.ops import pallas_conv
     from fbbev_tpu_torch.train import Trainer
     t0 = time.perf_counter()
     model = FBOCC(dtype=torch.bfloat16, device=dev, pallas3x3=True,
@@ -501,11 +665,8 @@ def run_train(dev):
                for i in range(n_fresh + n_cont)]
     log(f"train: model, trainer and {len(batches)} batches built in "
         f"{time.perf_counter() - t0:.1f} s")
-    mods = (pallas_conv, pallas_fuse_warp, pallas_pool, pallas_sample)
-    for m in mods:
-        m.launches = 0
-    pallas_conv.dgrad_launches = 0
-    pallas_sample.selfattn_launches = 0
+    reset_counts()
+    pallas_conv.launches = pallas_conv.dgrad_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, ms = s0, []
@@ -538,11 +699,7 @@ def run_train(dev):
                 log(f"  gradient (Adam mu) norm {top}: {norm:.4e}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = dict(conv3x3=pallas_conv.launches,
-                  conv3x3_dgrad=pallas_conv.dgrad_launches,
-                  bev_pool=pallas_pool.launches,
-                  msda=pallas_sample.launches,
-                  msda_selfattn=pallas_sample.selfattn_launches,
-                  fuse_warp=pallas_fuse_warp.launches)
+                  conv3x3_dgrad=pallas_conv.dgrad_launches, **read_counts())
     log(f"launches in the train run: {counts}")
     # every K7 conv of K7_SHAPES once forward and once in dgrad per step,
     # the ResNet's again in its stages' recomputation
@@ -553,8 +710,7 @@ def run_train(dev):
         raise AssertionError(f"K7 launches (forward, dgrad) "
                              f"{counts['conv3x3'], counts['conv3x3_dgrad']}"
                              f", expected {want}")
-    if counts["bev_pool"] or counts["msda"] or counts["msda_selfattn"] \
-            or counts["fuse_warp"]:
+    if any(read_counts().values()):
         raise AssertionError(f"training launched a kernel without a "
                              f"backward: {counts}")
     for what, a, b in (("params", s0.params, state.params),
@@ -573,60 +729,126 @@ def run_train(dev):
     return counts, steady, peak
 
 
-def run_flagship(dev):
-    """Full-width flagship serving stream in bf16."""
+# the port's route arguments of the kernel-routed configurations, and the
+# launches of each kernel per frame of their streams (any other: none)
+ROUTED = dict(fuse_warp=False, pallas_conv3d=True, occ_tail=True)
+BLEND = dict(coarse_pred=False, occ_fuse=True)
+PER_FRAME = {
+    "default": dict(bev_pool=1, msda=1, msda_selfattn=1, fuse_warp=1),
+    "routed": dict(bev_pool=1, msda=1, msda_selfattn=1, warp_affine=1,
+                   conv3d=16, occ_tail=1),
+    "blend": dict(bev_pool=1, msda=1, msda_selfattn=1, fuse_warp=1,
+                  occ_fuse=1),
+}
+
+
+def _counted():
+    """(module, counter attribute, name) of every serving kernel."""
+    from fbbev_tpu_torch.ops import pallas_conv3d, pallas_fuse_warp, \
+        pallas_occ_fuse, pallas_occ_tail, pallas_pool, pallas_sample, \
+        pallas_warp
+    return [(pallas_pool, "launches", "bev_pool"),
+            (pallas_sample, "launches", "msda"),
+            (pallas_sample, "selfattn_launches", "msda_selfattn"),
+            (pallas_fuse_warp, "launches", "fuse_warp"),
+            (pallas_warp, "launches", "warp_affine"),
+            (pallas_conv3d, "launches", "conv3d"),
+            (pallas_occ_tail, "launches", "occ_tail"),
+            (pallas_occ_fuse, "launches", "occ_fuse")]
+
+
+def reset_counts():
+    for mod, attr, _ in _counted():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(mod, attr) for mod, attr, name in _counted()}
+
+
+def run_stream(dev, label, frames, **routes):
+    """A full-width bf16 flagship stream of ``frames`` frames (a sequence
+    start, then flow(1)) with the model's route arguments ``routes``:
+    labels (1,200,200,16), finite logits, and exactly PER_FRAME[label]
+    launches of each kernel per frame.  Returns (counts, median ms of
+    frames 2..)."""
     import torch
     from fbbev_tpu_torch.models import FBOCC
-    from fbbev_tpu_torch.ops import pallas_fuse_warp, pallas_pool, \
-        pallas_sample
+    from fbbev_tpu_torch.models.layers import Conv3dK6
+    from fbbev_tpu_torch.ops import pallas_occ_tail
     from fbbev_tpu_torch.serving import FixedRigPipeline
     t0 = time.perf_counter()
     model = FBOCC(dtype=torch.bfloat16, device=dev,
-                  generator=torch.Generator().manual_seed(0))
+                  generator=torch.Generator().manual_seed(0), **routes)
     pipe = FixedRigPipeline(model, flagship_rig())
-    log(f"flagship model + rig-static terms built in "
+    log(f"{label} stream {routes}: model + rig-static terms built in "
         f"{time.perf_counter() - t0:.1f} s")
-    logits = []
+    logits, tail_args, cl3d = [], [], []
     model.occupancy_head.occ_pred_conv[3].register_forward_hook(
         lambda m, i, o: logits.append(bool(torch.isfinite(o).all()))
         or None)
+    for m in model.modules():
+        if isinstance(m, Conv3dK6):
+            m.register_forward_pre_hook(lambda m, i: cl3d.append(
+                i[0].is_contiguous(memory_format=torch.channels_last_3d))
+                or None)
+    real_tail = pallas_occ_tail.occ_tail
+
+    def tail(*a, **k):  # keeps the last frame's K8 inputs for the check
+        tail_args[:] = [a]
+        return real_tail(*a, **k)
+
+    pallas_occ_tail.occ_tail = tail
     g = torch.Generator().manual_seed(1)
     imgs = [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
-            for _ in range(FRAMES)]
-    for m in (pallas_pool, pallas_sample, pallas_fuse_warp):
-        m.launches = 0
-    pallas_sample.selfattn_launches = 0
-    times = []
-    for i in range(FRAMES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        labels = pipe(imgs[i], i == 0, flow(0 if i == 0 else 1))
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    counts = dict(bev_pool=pallas_pool.launches, msda=pallas_sample.launches,
-                  msda_selfattn=pallas_sample.selfattn_launches,
-                  fuse_warp=pallas_fuse_warp.launches)
-    log(f"flagship frames: {FRAMES}, ms per frame "
+            for _ in range(frames)]
+    try:
+        reset_counts()
+        times = []
+        for i in range(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = pipe(imgs[i], i == 0, flow(0 if i == 0 else 1))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        counts = read_counts()
+    finally:
+        pallas_occ_tail.occ_tail = real_tail
+    log(f"{label} frames: {frames}, ms per frame "
         f"{[round(x, 2) for x in times]}, median "
-        f"{float(np.median(times)):.2f} ms (first frame included)")
-    log(f"launches in the stream: {counts}")
+        f"{float(np.median(times[1:])):.2f} ms (frames 2..{frames})")
+    log(f"launches in the {label} stream: {counts}")
     if tuple(labels.shape) != (1, 200, 200, 16):
         raise AssertionError(f"labels shape {tuple(labels.shape)}")
-    if not (len(logits) == FRAMES and all(logits)):
+    if tail_args:
+        # the tail's logits, which the stream never materialises: from the
+        # last frame's K8 inputs, after the counts were read
+        with torch.no_grad():
+            lab, lg = real_tail(*tail_args[0], return_logits=True)
+        logits = [bool(torch.isfinite(lg).all())] * frames
+        if not torch.equal(lab, labels):
+            raise AssertionError("K8 labels differ between two launches")
+    if not (len(logits) == frames and all(logits)):
         raise AssertionError(f"non-finite logits: {logits}")
+    if cl3d:
+        log(f"K6 module inputs in channels_last_3d memory: {sum(cl3d)} of "
+            f"{len(cl3d)}")
     lab = labels.flatten().bincount(minlength=19).tolist()
     log(f"labels of the last frame by class: {lab}")
-    if not (counts["bev_pool"] == counts["fuse_warp"] == counts["msda"]
-            == counts["msda_selfattn"] == FRAMES):
-        raise AssertionError(f"a kernel missed a frame: {counts}")
+    want = {k: PER_FRAME[label].get(k, 0) * frames for k in counts}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    del pipe, model
+    torch.cuda.empty_cache()
     return counts, float(np.median(times[1:]))
 
 
-def run_small_parity(dev):
-    """A small bf16 config on the card (kernels, cuDNN) vs the same model
-    on the CPU (plain versions, oneDNN): labels must agree on >= 95% of
-    voxels (bf16 convolutions round differently in the two libraries, and
-    random-weight logits have near-ties)."""
+def run_small_parity(dev, **routes):
+    """A small bf16 config with the route arguments ``routes`` on the card
+    (kernels, cuDNN) vs the same model on the CPU (plain versions,
+    oneDNN): labels must agree on >= 95% of voxels (bf16 convolutions
+    round differently in the two libraries, and random-weight logits have
+    near-ties)."""
     import torch
     from fbbev_tpu_torch.models import FBOCC
     from fbbev_tpu_torch.serving import FixedRigPipeline
@@ -643,65 +865,82 @@ def run_small_parity(dev):
     out = {}
     for d in ("cpu", dev):
         m = FBOCC(**kw, dtype=torch.bfloat16, device=d,
-                  generator=torch.Generator().manual_seed(5))
+                  generator=torch.Generator().manual_seed(5), **routes)
         pipe = FixedRigPipeline(m, rig)
         g = torch.Generator().manual_seed(6)
         out[d] = [pipe(torch.randn(1, 2, 64, 128, 3, generator=g), i == 0,
                        flow(i)).cpu() for i in range(3)]
     agree = min(float((a == b).float().mean())
                 for a, b in zip(out["cpu"], out[dev]))
-    log(f"small bf16 config, card vs CPU plain versions: label agreement "
-        f"{agree:.5f} (min over 3 frames)")
+    log(f"small bf16 config {routes}, card vs CPU plain versions: label "
+        f"agreement {agree:.5f} (min over 3 frames)")
     if agree < 0.95:
         raise AssertionError(f"card and CPU disagree: {agree}")
 
 
-def profile(dev, frames=5):
-    """Flagship frame time and its device time by stage and by kernel
-    (``--profile``): 20 timed frames, then ``torch.profiler`` over
-    ``frames`` frames; then the same with cuDNN's autotuner on."""
+def profile_frames(pipe, imgs, frames, ours, label):
+    """Steady frame time of ``pipe`` (CUDA events, mean of 20), then
+    ``torch.profiler`` over ``frames`` frames: kernel time and device idle
+    share, device time by stage, the top kernels (the port's tagged)."""
     import torch
     from torch.profiler import ProfilerActivity
+    ms = cuda_time(lambda: pipe(imgs[1], False, flow(1)), iters=20)
+    log(f"{label}: flagship steady frame {ms:.3f} ms (CUDA events, mean "
+        f"of 20)")
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(frames):
+            pipe(imgs[i % 3], False, flow(1))
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    dkey = ("device_time_total" if hasattr(ev[0], "device_time_total")
+            else "cuda_time_total")
+    dt = (lambda e: getattr(e, dkey) / 1e3 / frames)
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in ev if e.device_type == cuda
+            and not e.key.startswith("serving/")]
+    total = sum(dt(e) for e in kern)
+    log(f"  kernel time per frame {total:.3f} ms of {ms:.3f} ms: "
+        f"device idle share {max(0.0, 1 - total / ms):.3f}")
+    # a stage's device time: kernels launched by its PyTorch ops; the
+    # port's own kernels (launched through ctypes) are listed apart
+    for e in sorted((e for e in ev if e.key.startswith("serving/")
+                     and e.device_type != cuda), key=dt, reverse=True):
+        log(f"  stage {e.key[8:]:22s} {dt(e):8.3f} ms device (torch "
+            f"ops)  {e.cpu_time_total / 1e3 / frames:8.3f} ms host")
+    for e in sorted(kern, key=dt, reverse=True)[:16]:
+        tag = "port" if any(o in e.key for o in ours) else "    "
+        log(f"  {tag} kernel {dt(e):8.3f} ms x{e.count // frames:<3d} "
+            f"{e.key[:80]}")
+
+
+def profile(dev, frames=5):
+    """Flagship frame time and its device time by stage and by kernel
+    (``--profile``), for the default configuration and the kernel-routed
+    one (``ROUTED``): 20 timed frames, then ``torch.profiler`` over
+    ``frames`` frames; the default configuration again with cuDNN's
+    autotuner on."""
+    import torch
     from fbbev_tpu_torch.models import FBOCC
     from fbbev_tpu_torch.serving import FixedRigPipeline
-    model = FBOCC(dtype=torch.bfloat16, device=dev,
-                  generator=torch.Generator().manual_seed(0))
-    pipe = FixedRigPipeline(model, flagship_rig())
+    ours = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
+            "conv3d_", "occ_tail_kernel")
     g = torch.Generator().manual_seed(1)
     imgs = [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
             for _ in range(3)]
-    pipe(imgs[0], True)
-    ours = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel")
-    for bench in (False, True):
-        torch.backends.cudnn.benchmark = bench
-        ms = cuda_time(lambda: pipe(imgs[1], False, flow(1)), iters=20)
-        log(f"cudnn.benchmark={bench}: flagship steady frame {ms:.3f} ms "
-            f"(CUDA events, mean of 20)")
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(frames):
-                pipe(imgs[i % 3], False, flow(1))
-            torch.cuda.synchronize()
-        ev = prof.key_averages()
-        dkey = ("device_time_total" if hasattr(ev[0], "device_time_total")
-                else "cuda_time_total")
-        dt = (lambda e: getattr(e, dkey) / 1e3 / frames)
-        cuda = torch.autograd.DeviceType.CUDA
-        kern = [e for e in ev if e.device_type == cuda
-                and not e.key.startswith("serving/")]
-        total = sum(dt(e) for e in kern)
-        log(f"  kernel time per frame {total:.3f} ms of {ms:.3f} ms: "
-            f"device idle share {max(0.0, 1 - total / ms):.3f}")
-        # a stage's device time: kernels launched by its PyTorch ops; the
-        # port's own kernels (launched through ctypes) are listed apart
-        for e in sorted((e for e in ev if e.key.startswith("serving/")
-                         and e.device_type != cuda), key=dt, reverse=True):
-            log(f"  stage {e.key[8:]:22s} {dt(e):8.3f} ms device (torch "
-                f"ops)  {e.cpu_time_total / 1e3 / frames:8.3f} ms host")
-        for e in sorted(kern, key=dt, reverse=True)[:16]:
-            tag = "port" if any(o in e.key for o in ours) else "    "
-            log(f"  {tag} kernel {dt(e):8.3f} ms x{e.count // frames:<3d} "
-                f"{e.key[:80]}")
+    for label, routes, benches in (("routed", ROUTED, (False,)),
+                                   ("default", {}, (False, True))):
+        model = FBOCC(dtype=torch.bfloat16, device=dev,
+                      generator=torch.Generator().manual_seed(0), **routes)
+        pipe = FixedRigPipeline(model, flagship_rig())
+        pipe(imgs[0], True)
+        for bench in benches:
+            torch.backends.cudnn.benchmark = bench
+            profile_frames(pipe, imgs, frames, ours,
+                           f"{label} {routes} cudnn.benchmark={bench}")
+        if label == "routed":
+            del pipe, model
+            torch.cuda.empty_cache()
     torch.backends.cudnn.benchmark = False
     # the depth net's convolutions one by one, at their frame inputs
     shapes = {}
@@ -820,16 +1059,27 @@ def main():
                check_k1(dev, epilogue=True)]
     check_k1(dev, epilogue=False)
     k7 = check_k7(dev)
-    unported_bounds(dev)
-    counts, median_ms = run_flagship(dev)
+    routed = [check_k5(dev), check_k6(dev), check_k8(dev), check_k9(dev)]
+    unported_bounds()
+    # each serving path with the counts set to 0 just before it
+    counts, median_ms = run_stream(dev, "default", FRAMES)
     log(f"flagship median frame {median_ms:.2f} ms (frames 2..{FRAMES})")
     for k in kernels:
         k["launches"] = counts[k["name"]]
+    counts_r, median_r = run_stream(dev, "routed", FRAMES, **ROUTED)
+    counts_b, median_b = run_stream(dev, "blend", 3, **BLEND)
+    log(f"median frame: default {median_ms:.2f} ms, routed {median_r:.2f} "
+        f"ms, blend {median_b:.2f} ms")
+    for k in routed:
+        k["launches"] = (counts_b if k["name"] == "occ_fuse"
+                         else counts_r)[k["name"]]
     run_small_parity(dev)
+    run_small_parity(dev, **ROUTED)
     train_counts, step_ms, peak = run_train(dev)
     for k in k7:
         k["launches"] = train_counts[k["name"]]
-    log(json.dumps({"kernels": kernels + k7}))
+    log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
+    log(json.dumps({"kernels": kernels + k7 + routed}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -149,25 +149,20 @@ def flow_matrix_from_grid_args(history_forward_augs: torch.Tensor,
             @ feat2bev[None])
 
 
-def history_flow_grid(history_forward_augs: torch.Tensor,
-                      forward_augs: torch.Tensor,
-                      curr_to_prev_ego_rt: torch.Tensor,
-                      feat2bev: torch.Tensor,
-                      grid_zyx: Tuple[int, int, int]) -> torch.Tensor:
-    """The ``(B, Z, Y, X, 3)`` sampling grid, (x, y, z) in [-1, 1] for an
-    align_corners=True trilinear sample, that warps the previous BEV
-    volume into the current frame's indices.  Counterpart of
-    ``fbbev_tpu/geometry.py::history_flow_grid``."""
+def flow_grid(mat: torch.Tensor, grid_zyx: Tuple[int, int, int]
+              ) -> torch.Tensor:
+    """The ``(B, Y, X, Z, 3)`` sampling grid, (x, y, z) in [-1, 1] for an
+    align_corners=True trilinear sample, of the ``(B, 4, 4)`` index-unit
+    flow ``mat``, in its dtype: the source of output voxel (y, x, z).
+    ``fbbev_tpu/geometry.py::history_flow_grid`` of the same flow,
+    transposed from (B, Z, Y, X, 3)."""
     z, h, w = grid_zyx
-    dev = forward_augs.device
+    dev, dt = mat.device, mat.dtype
     gy, gx, gz = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=dev),
-        torch.arange(w, dtype=torch.float32, device=dev),
-        torch.arange(z, dtype=torch.float32, device=dev), indexing="ij")
+        torch.arange(h, dtype=dt, device=dev),
+        torch.arange(w, dtype=dt, device=dev),
+        torch.arange(z, dtype=dt, device=dev), indexing="ij")
     grid = torch.stack([gx, gy, gz, torch.ones_like(gx)], -1)
-    rt_flow = flow_matrix_from_grid_args(history_forward_augs, forward_augs,
-                                         curr_to_prev_ego_rt, feat2bev)
-    warped = torch.einsum("bij,hwzj->bhwzi", rt_flow, grid)[..., :3]
-    norm = torch.tensor([w - 1.0, h - 1.0, z - 1.0], dtype=torch.float32,
-                        device=dev)
-    return (warped / norm * 2.0 - 1.0).permute(0, 3, 1, 2, 4)
+    warped = torch.einsum("bij,hwzj->bhwzi", mat, grid)[..., :3]
+    norm = torch.tensor([w - 1.0, h - 1.0, z - 1.0], dtype=dt, device=dev)
+    return warped / norm * 2.0 - 1.0

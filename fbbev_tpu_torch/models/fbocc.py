@@ -13,9 +13,10 @@ that produced it (as in the JAX package):
   restored where it is consumed, by permuting the rows of the cat-conv
   weight;
 * :meth:`FBOCC.forward` -- training, and evaluation outside serving --
-  keeps it age-ordered (newest first, shifted by one frame per step), the
-  JAX package's XLA fallback (``fbocc.py:436-513``,
-  :meth:`FBOCC.fuse_history_aged`).
+  and serving with ``fuse_warp=False`` keep it age-ordered (newest first,
+  shifted by one frame per step), the JAX package's fallback
+  (``fbocc.py:436-513``, :meth:`FBOCC.fuse_history_aged`), whose eval warp
+  is K5 with ``fuse_warp=False``.
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ from fbbev_tpu_torch.models.lss import LSSViewTransformer3D
 from fbbev_tpu_torch.models.occ_head import OccHead
 from fbbev_tpu_torch.models.resnet import ResNet
 from fbbev_tpu_torch.models.resnet3d import CustomResNet3D
-from fbbev_tpu_torch.ops import pallas_fuse_warp
-from fbbev_tpu_torch.ops.grid_sample import grid_sample_3d
+from fbbev_tpu_torch.ops import pallas_fuse_warp, pallas_warp
 
 DEFAULT_GRID_CONFIG = {
     "x": (-40.0, 40.0, 0.8),
@@ -97,7 +97,17 @@ class FBOCC(nn.Module):
     image trunk's 2D ones directly, the 3D encoder's, FPN3D's and the occ
     head's 3x3x3 ones through the z-slab decomposition;
     ``remat`` checkpoints each ResNet stage in training (the config's
-    ``remat=True``)."""
+    ``remat=True``).
+
+    The JAX package's opt-in eval routes, each named after its switch and
+    taken exactly where the JAX gate holds (train mode is unchanged):
+    ``fuse_warp`` (``FBBEV_FUSE_WARP``, default on) serves through
+    :meth:`fuse_history` on K1; off, :meth:`fuse_history_aged` warps the
+    age-ordered history on K5.  ``pallas_conv3d`` (``FBBEV_CONV3D=pallas``)
+    sends the stride-1 3x3x3 convs to K6.  ``coarse_pred``
+    (``FBBEV_OCC_COARSE_PRED``, default on), ``occ_tail``
+    (``FBBEV_OCC_TAIL``: K8) and ``occ_fuse`` (``FBBEV_OCCFUSE``: K9)
+    pick the occ head's tail (:class:`OccHead`)."""
 
     def __init__(self, grid_config=None, bevformer_grid_config=None,
                  input_size: Tuple[int, int] = (256, 704),
@@ -111,7 +121,10 @@ class FBOCC(nn.Module):
                  voxel_channels: Tuple[int, ...] = (64, 128, 256),
                  voxel_out_channels: int = 256, dtype=torch.float32,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 pallas3x3: bool = False, remat: bool = False):
+                 pallas3x3: bool = False, remat: bool = False,
+                 occ_tail: bool = False, occ_fuse: bool = False,
+                 coarse_pred: bool = True, pallas_conv3d: bool = False,
+                 fuse_warp: bool = True):
         super().__init__()
         self.grid_config = dict(grid_config or DEFAULT_GRID_CONFIG)
         self.bevformer_grid_config = dict(
@@ -125,6 +138,7 @@ class FBOCC(nn.Module):
         self.max_queries_per_cam = max_queries_per_cam
         self.dtype = dtype
         self.pallas3x3 = pallas3x3
+        self.fuse_warp = fuse_warp
         self.forward_projection = LSSViewTransformer3D(
             self.grid_config, self.input_size, downsample)
 
@@ -137,11 +151,15 @@ class FBOCC(nn.Module):
         self.history_keyframe_cat_conv = RingCatConvBN(
             C * (history_cat_num + 1), history_cat_conv_out_channels)
         self.img_bev_encoder_backbone = CustomResNet3D(
-            history_cat_conv_out_channels, tuple(voxel_channels), pallas3x3)
+            history_cat_conv_out_channels, tuple(voxel_channels), pallas3x3,
+            pallas_conv3d)
         self.img_bev_encoder_neck = FPN3D(tuple(voxel_channels),
-                                          voxel_out_channels, pallas3x3)
-        self.occupancy_head = OccHead((voxel_out_channels,) * 3,
-                                      num_classes, pallas3x3)
+                                          voxel_out_channels, pallas3x3,
+                                          pallas_conv3d)
+        self.occupancy_head = OccHead(
+            (voxel_out_channels,) * 3, num_classes, pallas3x3,
+            pallas_conv3d=pallas_conv3d, coarse_pred=coarse_pred,
+            occ_tail=occ_tail, occ_fuse=occ_fuse)
         init_weights(self, generator)
         self.to(device=device, dtype=dtype)
         for m in self.depth_net.float32_islands():
@@ -227,7 +245,8 @@ class FBOCC(nn.Module):
                           meta: Dict[str, Any], bda: torch.Tensor,
                           do_history: bool = True):
         """SoloFusion temporal fusion on the age-ordered history, the JAX
-        package's XLA fallback (``fbocc.py:436-513``), in train and eval.
+        package's fallback (``fbocc.py:436-513``), in train and eval; the
+        warp is K5 in eval with ``fuse_warp`` off, else its plain version.
 
         curr_bev (B, Y, X, Z, C); meta as :meth:`fuse_history`; with
         ``do_history`` False every sample starts a fresh stream
@@ -261,10 +280,16 @@ class FBOCC(nn.Module):
             fp = self.forward_projection
             f2b = torch.from_numpy(geometry.feat2bev_matrix(fp.dx, fp.bx)).to(
                 dev)
-            grid = geometry.history_flow_grid(hist_augs, forward_augs,
-                                              curr_to_prev, f2b, (nz, ny, nx))
-            sampled = grid_sample_3d(hist_zyx, grid).permute(
-                0, 2, 3, 1, 4).to(dt)                      # (B, Y, X, Z, TC)
+            mat = geometry.flow_matrix_from_grid_args(
+                hist_augs, forward_augs, curr_to_prev, f2b)
+            # eval with the fused warp off: K5 where its gate holds, as
+            # the JAX package's fallback (fbocc.py:445-453)
+            if (self.training or self.fuse_warp
+                    or not pallas_warp.supports(hist_zyx.shape)):
+                warp = pallas_warp.warp_affine_3d_plain
+            else:
+                warp = pallas_warp.warp_affine_3d
+            sampled = warp(hist_zyx, mat).to(dt)           # (B, Y, X, Z, TC)
         feats_cat = torch.cat([curr_bev, sampled], -1)     # (1 + T) C
         sweep_full = torch.cat([torch.zeros(B, 1, device=dev), sweep_r], 1)
         new_hist = feats_cat[..., :T * C].detach().permute(

@@ -1,7 +1,8 @@
 """3D FPN over voxel features.  Counterpart of
 ``fbbev_tpu/models/fpn3d.py::FPN3D``: 1x1x1 conv-BN-ReLU laterals,
 trilinear top-down (align_corners=False), 3x3x3 conv-BN-ReLU outputs
-(on K7 through the z-slab decomposition with ``pallas3x3``).
+(on K7 through the z-slab decomposition with ``pallas3x3``, on K6 in eval
+with ``pallas_conv3d``).
 ``(B, C, Y, X, Z)`` tensors."""
 
 from __future__ import annotations
@@ -15,14 +16,16 @@ from fbbev_tpu_torch.models.layers import ConvModule, resize_trilinear
 
 class FPN3D(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (64, 128, 256),
-                 out_channels: int = 256, pallas3x3: bool = False):
+                 out_channels: int = 256, pallas3x3: bool = False,
+                 pallas_conv3d: bool = False):
         super().__init__()
         self.lateral_convs = nn.ModuleList(
             nn.Sequential(ConvModule(3, c, out_channels, 1))
             for c in in_channels)
         self.fpn_convs = nn.ModuleList(
             nn.Sequential(ConvModule(3, out_channels, out_channels, 3,
-                                     padding=1, pallas3x3=pallas3x3))
+                                     padding=1, pallas3x3=pallas3x3,
+                                     pallas_conv3d=pallas_conv3d))
             for _ in in_channels)
 
     def forward(self, inputs):

@@ -11,11 +11,14 @@ convolution does, so the JAX package passes explicit paddings on the
 paths ported here and so does the port.  Module and parameter names are
 the reference's torch names, so the converted state dict loads with
 ``strict=True``.  The JAX package's TPU convolution routings (z-slab,
-z-fold, the 3D Pallas conv) are plain ``nn.Conv3d``/``nn.Conv2d`` here,
-except where they reach its Pallas 3x3 conv (``FBBEV_PALLAS3X3=1``), the
-port's K7: convolutions built with ``pallas3x3=True`` take it, the 2D
-3x3 stride-1 ones directly (:class:`Conv3x3K7`) and the 3x3x3 stride-1
-ones through the z-slab decomposition (:class:`Conv3dZSlabK7`).
+z-fold) are plain ``nn.Conv3d``/``nn.Conv2d`` here, except where they
+reach a TPU kernel.  Its Pallas 3x3 conv (``FBBEV_PALLAS3X3=1``) is the
+port's K7: convolutions built with ``pallas3x3=True`` take it, the 2D 3x3
+stride-1 ones directly (:class:`Conv3x3K7`) and the 3x3x3 stride-1 ones
+through the z-slab decomposition (:class:`Conv3dZSlabK7`).  Its Pallas
+3x3x3 conv (``FBBEV_CONV3D=pallas``) is the port's K6: 3x3x3 stride-1
+convolutions built with ``pallas_conv3d=True`` take it in eval
+(:class:`Conv3dK6`).
 
 BatchNorm has flax semantics (:func:`batch_norm`): in train mode it
 normalises with the biased batch variance and updates the running
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from fbbev_tpu_torch.ops import pallas_conv
+from fbbev_tpu_torch.ops import pallas_conv3d as conv3d_k6
 
 
 class Conv3x3K7(nn.Conv2d):
@@ -79,16 +83,49 @@ class Conv3dZSlabK7(nn.Conv3d):
         return out
 
 
+class Conv3dK6(Conv3dZSlabK7):
+    """3x3x3 stride-1 padding-1 ``nn.Conv3d`` on ``(B, C, Y, X, Z)``
+    tensors that runs on K6 (``ops/pallas_conv3d.py``, no backward) in
+    eval wherever the JAX routing gate ``_pallas3d_eligible``
+    (``layers.py:60-71``: :func:`conv3d_k6.supports` on the channels-last
+    shape) holds, as ``ConvBN`` routes to ``PallasConv3D`` there
+    (``layers.py:333-336``).  Elsewhere, and always in train mode, it is
+    a :class:`Conv3dZSlabK7` when ``zslab`` (``pallas3x3`` as well) and an
+    ``nn.Conv3d`` otherwise.  K6 reads channels-last memory: free when x
+    is in ``torch.channels_last_3d`` format, a copy otherwise."""
+
+    def __init__(self, *args, zslab: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.zslab = zslab
+
+    def forward(self, x):
+        B, C, Y, X, Z = x.shape
+        if not self.training and conv3d_k6.supports((B, Y, X, Z, C),
+                                                    self.out_channels):
+            y = conv3d_k6.conv3d_3x3x3(x, self.weight)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)[:, None, None, None]
+            return y
+        if self.zslab:
+            return super().forward(x)
+        return nn.Conv3d.forward(self, x)
+
+
 def conv(ndim: int, cin: int, cout: int, k: int, stride: int = 1,
          padding: int = 0, dilation: int = 1, bias: bool = False,
-         pallas3x3: bool = False):
-    """``nn.Conv{2,3}d`` with explicit integer padding; with ``pallas3x3``
-    a 3x3(x3) stride-1 padding-1 undilated conv is a :class:`Conv3x3K7`
+         pallas3x3: bool = False, pallas_conv3d: bool = False):
+    """``nn.Conv{2,3}d`` with explicit integer padding.  A 3x3(x3)
+    stride-1 padding-1 undilated conv is, with ``pallas_conv3d``, a
+    :class:`Conv3dK6` (3D); else with ``pallas3x3`` a :class:`Conv3x3K7`
     (2D) or a :class:`Conv3dZSlabK7` (3D)."""
     assert isinstance(padding, int), padding
-    if pallas3x3 and (k, stride, padding, dilation) == (3, 1, 1, 1):
-        cls = Conv3x3K7 if ndim == 2 else Conv3dZSlabK7
-        return cls(cin, cout, 3, padding=1, bias=bias)
+    if (k, stride, padding, dilation) == (3, 1, 1, 1):
+        if pallas_conv3d and ndim == 3:
+            return Conv3dK6(cin, cout, 3, padding=1, bias=bias,
+                            zslab=pallas3x3)
+        if pallas3x3:
+            cls = Conv3x3K7 if ndim == 2 else Conv3dZSlabK7
+            return cls(cin, cout, 3, padding=1, bias=bias)
     cls = nn.Conv2d if ndim == 2 else nn.Conv3d
     return cls(cin, cout, k, stride=stride, padding=padding,
                dilation=dilation, bias=bias)
@@ -169,11 +206,12 @@ def checkpoint_stage(stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 def conv_bn_relu(ndim: int, cin: int, cout: int, k: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, bias: bool = False,
-                 relu: bool = True, pallas3x3: bool = False) -> nn.Sequential:
+                 relu: bool = True, pallas3x3: bool = False,
+                 pallas_conv3d: bool = False) -> nn.Sequential:
     """``Sequential(conv, bn[, relu])`` -- the reference's ``X.0``/``X.1``
     naming."""
     mods = [conv(ndim, cin, cout, k, stride, padding, dilation, bias,
-                 pallas3x3), bn(ndim, cout)]
+                 pallas3x3, pallas_conv3d), bn(ndim, cout)]
     if relu:
         mods.append(nn.ReLU())
     return nn.Sequential(*mods)
@@ -184,10 +222,11 @@ class ConvModule(nn.Module):
 
     def __init__(self, ndim: int, cin: int, cout: int, k: int,
                  padding: int = 0, bias: bool = False, norm: bool = True,
-                 relu: bool = True, pallas3x3: bool = False):
+                 relu: bool = True, pallas3x3: bool = False,
+                 pallas_conv3d: bool = False):
         super().__init__()
         self.conv = conv(ndim, cin, cout, k, padding=padding, bias=bias,
-                         pallas3x3=pallas3x3)
+                         pallas3x3=pallas3x3, pallas_conv3d=pallas_conv3d)
         self.bn = bn(ndim, cout) if norm else None
         self.relu = relu
 
@@ -203,13 +242,14 @@ class BasicBlock(nn.Module):
     encoder's convs carry a bias, the 2D ones do not."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1, ndim: int = 2,
-                 bias: bool = False, pallas3x3: bool = False):
+                 bias: bool = False, pallas3x3: bool = False,
+                 pallas_conv3d: bool = False):
         super().__init__()
         self.conv1 = conv(ndim, cin, cout, 3, stride, 1, bias=bias,
-                          pallas3x3=pallas3x3)
+                          pallas3x3=pallas3x3, pallas_conv3d=pallas_conv3d)
         self.bn1 = bn(ndim, cout)
         self.conv2 = conv(ndim, cout, cout, 3, 1, 1, bias=bias,
-                          pallas3x3=pallas3x3)
+                          pallas3x3=pallas3x3, pallas_conv3d=pallas_conv3d)
         self.bn2 = bn(ndim, cout)
         self.downsample = None
         if stride != 1 or cin != cout:
@@ -293,6 +333,32 @@ def upsample_nearest(x, out_hw: Tuple[int, int]):
     (plain ``nearest`` floors ``i*in/out`` and differs at non-integer
     ratios)."""
     return F.interpolate(x, size=tuple(out_hw), mode="nearest-exact")
+
+
+def upsample_int_axis(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
+    """Exact integer-factor linear upsample along one axis
+    (align_corners=False, half-pixel centres, edge clamp): phase k of the
+    output samples input coordinate (k + .5)/s - .5, a fixed 2-tap lerp
+    with Python-float weights, each product and the sum in x's type.
+    The port's copy of ``fbbev_tpu/models/layers.py:519``."""
+    if s == 1:
+        return x
+    n = x.shape[axis]
+    i = torch.arange(n, device=x.device)
+    prev = x.index_select(axis, (i - 1).clamp(min=0))
+    nxt = x.index_select(axis, (i + 1).clamp(max=n - 1))
+    phases = []
+    for k in range(s):
+        c = (k + 0.5) / s - 0.5
+        if c < 0:
+            w = c + 1.0  # lerp(prev, x, w)
+            phases.append((1.0 - w) * prev + w * x)
+        else:
+            w = c  # lerp(x, next, w)
+            phases.append((1.0 - w) * x + w * nxt)
+    shape = list(x.shape)
+    shape[axis] *= s
+    return torch.stack(phases, dim=axis + 1).reshape(shape)
 
 
 def resize_trilinear(x, out_size: Sequence[int]):

@@ -1,15 +1,25 @@
 """Occupancy head.  Counterpart of
 ``fbbev_tpu/models/occ_head.py::OccHead``.  In eval it takes the
-coarse-pred reorder (``_PredConvFused``): the 1x1x1 ``occ_pred_conv.0``
-is applied to each level at its own resolution before the trilinear
-upsample and the softmax blend, which is exact because the conv is linear
-and commutes with the per-voxel blend weights and the linear upsample; BN
-and relu run after the blend as in the reference order.  In training the
-levels are upsampled and blended first and ``occ_pred_conv`` runs on the
-blend, as the JAX train path does (``occ_head.py:108``: no reorder), with
-batch-statistics BN.  ``pallas3x3`` routes the 3x3x3 level convs to
-K7 through the z-slab decomposition, as the JAX configuration
-``FBBEV_PALLAS3X3=1`` does.  ``(B, C, Y, X, Z)`` inputs."""
+coarse-pred reorder (``_PredConvFused``, ``coarse_pred``, on by default
+as ``FBBEV_OCC_COARSE_PRED`` is): the 1x1x1 ``occ_pred_conv.0`` is
+applied to each level at its own resolution before the trilinear upsample
+and the softmax blend, which is exact because the conv is linear and
+commutes with the per-voxel blend weights and the linear upsample; BN and
+relu run after the blend as in the reference order.  In training, and in
+eval with ``coarse_pred=False``, the levels are upsampled and blended
+first and ``occ_pred_conv`` runs on the blend, as the JAX train path does
+(``occ_head.py:108``: no reorder).
+
+The JAX package's opt-in eval kernels are routes here, taken where its
+gates hold: ``occ_tail`` (``FBBEV_OCC_TAIL=1``) runs the coarse-pred tail
+from the per-level ``occ_pred_conv.0`` outputs to labels on K8 when
+labels are asked for and every level divides the finest one
+(``_tail_ok``, ``occ_head.py:159-172``); ``occ_fuse`` (``FBBEV_OCCFUSE=1``)
+runs the blend on K9 when it is not the coarse-pred one, the channels are
+a multiple of 128 and the factors are integers (``occ_head.py:188-203``).
+``pallas3x3`` routes the 3x3x3 level convs to K7 through the z-slab
+decomposition (``FBBEV_PALLAS3X3=1``); ``pallas_conv3d`` to K6 in eval
+(``FBBEV_CONV3D=pallas``).  ``(B, C, Y, X, Z)`` inputs."""
 
 from __future__ import annotations
 
@@ -22,20 +32,26 @@ import torch.nn.functional as F
 from fbbev_tpu_torch.models import losses as L
 from fbbev_tpu_torch.models.layers import bn, conv, conv_bn_relu, \
     resize_trilinear
+from fbbev_tpu_torch.ops import pallas_occ_fuse, pallas_occ_tail
 
 
 class OccHead(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 256, 256),
-                 out_channel: int = 19, pallas3x3: bool = False):
+                 out_channel: int = 19, pallas3x3: bool = False,
+                 pallas_conv3d: bool = False, coarse_pred: bool = True,
+                 occ_tail: bool = False, occ_fuse: bool = False):
         super().__init__()
         mid = in_channels[0] // 2
         n_feats = len(in_channels) + 1
+        self.coarse_pred, self.occ_tail, self.occ_fuse = (
+            coarse_pred, occ_tail, occ_fuse)
         self.deblock = nn.Sequential(
             nn.ConvTranspose3d(in_channels[0], mid, 2, stride=2,
                                bias=False),
             bn(3, mid), nn.ReLU())
         self.occ_convs = nn.ModuleList(
-            conv_bn_relu(3, c, mid, 3, 1, 1, pallas3x3=pallas3x3)
+            conv_bn_relu(3, c, mid, 3, 1, 1, pallas3x3=pallas3x3,
+                         pallas_conv3d=pallas_conv3d)
             for c in in_channels)
         self.voxel_soft_weights = nn.Sequential(
             conv(3, mid, mid // 2, 1), bn(3, mid // 2), nn.ReLU(),
@@ -51,21 +67,42 @@ class OccHead(nn.Module):
             m(f) for m, f in zip(self.occ_convs, voxel_feats)]
         w = torch.softmax(self.voxel_soft_weights(outs[0]), dim=1)
         target = outs[0].shape[2:]
-        conv1 = self.occ_pred_conv[0]
-        # eval: conv1 per level before the blend; train: on the blend
-        fused = 0
-        for i, f in enumerate(outs):
-            y = f if self.training else conv1(f)
-            if y.shape[2:] != target:
-                y = resize_trilinear(y, target)
-            fused = fused + y * w[:, i:i + 1]
-        if self.training:
-            fused = conv1(fused)
-        y = F.relu(self.occ_pred_conv[1](fused))
+        conv1, bn1 = self.occ_pred_conv[0], self.occ_pred_conv[1]
+        coarse = self.coarse_pred and not self.training
+        if coarse:
+            ys = [conv1(f) for f in outs]
+            if (return_labels and self.occ_tail
+                    and pallas_occ_tail.int_factors(ys, target)):
+                a = bn1.weight.float() * torch.rsqrt(
+                    bn1.running_var.float() + bn1.eps)
+                b = bn1.bias.float() - bn1.running_mean.float() * a
+                k2 = self.occ_pred_conv[3].weight[:, :, 0, 0, 0].t()
+                return pallas_occ_tail.occ_tail(ys, w.to(ys[0].dtype), a, b,
+                                                k2)
+            fused = _blend(ys, w, target)
+        elif (not self.training and self.occ_fuse
+              and outs[0].shape[1] % 128 == 0
+              and pallas_occ_tail.int_factors(outs, target)):
+            fused = conv1(pallas_occ_fuse.fuse_multiscale(
+                outs, w.to(outs[0].dtype)))
+        else:
+            fused = conv1(_blend(outs, w, target))
+        y = F.relu(bn1(fused))
         logits = self.occ_pred_conv[3](y).float()
         if return_labels:
             return logits.argmax(1)
         return logits.permute(0, 2, 3, 4, 1)
+
+
+def _blend(levels, w, target):
+    """Upsample every level to ``target`` and blend with ``w``: the JAX
+    package's XLA expression (``occ_head.py:211-216``)."""
+    fused = 0
+    for i, f in enumerate(levels):
+        if f.shape[2:] != target:
+            f = resize_trilinear(f, target)
+        fused = fused + f * w[:, i:i + 1]
+    return fused
 
 
 def downsample_gt_mode_pool(target: torch.Tensor, ratio: int,

@@ -6,9 +6,13 @@ construction: the voxel ranks and K2's sorted interval plan (on the host,
 float32 numpy), the backward projection's rebatch indices, anchors,
 depth one-hots and dense depth-sampling matrix, and the camera MLP input.
 Each call then runs one frame on the device and carries the temporal
-state.  Three hand-written kernels run per frame: K2 (voxel pool), K3
-(deformable sampling, twice: self- and cross-attention) and K1 (history
-warp with the conv epilogue).
+state.  Three hand-written kernels run per frame by default: K2 (voxel
+pool), K3 (deformable sampling, twice: self- and cross-attention) and K1
+(history warp with the conv epilogue).  The model's route arguments add
+others: with ``fuse_warp=False`` the history stays age-ordered (same
+shape, other slot order) and K5 warps it in place of K1; ``pallas_conv3d``
+runs the stride-1 3x3x3 convs on K6; ``occ_tail`` and ``occ_fuse`` run
+the occ head's tail on K8 or its blend on K9.
 """
 
 from __future__ import annotations
@@ -79,8 +83,12 @@ class FixedRigPipeline:
                 context, lss_bev.to(mdl.dtype), depth, self.bwd_terms)
             bev = refined.float()[:, :, :, None, :] + bev
         with stage("fuse_history"):
-            fused, new_state = mdl.fuse_history(bev, state, meta,
-                                                self.cam.bda)
+            if mdl.fuse_warp:
+                fused, new_state = mdl.fuse_history(bev, state, meta,
+                                                    self.cam.bda)
+            else:
+                fused, new_state, _ = mdl.fuse_history_aged(
+                    bev, state, meta, self.cam.bda)
         with stage("bev_encoder"):
             vox = mdl.img_bev_encoder_neck(mdl.img_bev_encoder_backbone(
                 fused.permute(0, 4, 1, 2, 3)))

@@ -83,7 +83,10 @@ class Optimizer:
         # in-place on fresh tensors, in optax's order of operations: a
         # flat vector is a model's worth of parameters
         g = grads.clone() if trainable is None else grads * trainable
-        g_norm = torch.linalg.vector_norm(g)
+        # optax.global_norm's square root of a sum of squares:
+        # torch.linalg.vector_norm accumulates a long float32 vector in
+        # order on the CPU and comes out 0.3% low at 30M elements
+        g_norm = torch.sqrt(torch.sum(g * g))
         if g_norm >= self.max_grad_norm:
             g.div_(g_norm).mul_(self.max_grad_norm)
         count = state.count + 1

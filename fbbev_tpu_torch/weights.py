@@ -170,18 +170,24 @@ def _rules(b: _Exporter) -> None:
             b.convbn(f"{nk}.{kind}.{i}.0.conv", f"{nk}.{kind}.{i}.0.bn",
                      K + (f"{name}{i}",), ndim=3)
 
-    oh, O = "occupancy_head", ("occupancy_head",)
-    b.deconv3d(f"{oh}.deblock.0", O + ("deblock_conv",))
-    b.bn(f"{oh}.deblock.1", O + ("deblock_bn",))
+    occ_head_rules(b, "occupancy_head.", ("occupancy_head",))
+
+
+def occ_head_rules(b: _Exporter, src: str, dst: Tuple[str, ...]) -> None:
+    """The ``OccHead`` rules: port names prefixed by ``src``, JAX paths
+    under ``dst``."""
+    b.deconv3d(f"{src}deblock.0", dst + ("deblock_conv",))
+    b.bn(f"{src}deblock.1", dst + ("deblock_bn",))
     for i in range(3):
-        b.convbn(f"{oh}.occ_convs.{i}.0", f"{oh}.occ_convs.{i}.1",
-                 O + (f"occ_conv{i}",), ndim=3)
-    b.convbn(f"{oh}.voxel_soft_weights.0", f"{oh}.voxel_soft_weights.1",
-             O + ("soft_weight_conv1",), ndim=3)
-    b.conv(f"{oh}.voxel_soft_weights.3", O + ("soft_weight_conv2",), ndim=3)
-    b.convbn(f"{oh}.occ_pred_conv.0", f"{oh}.occ_pred_conv.1",
-             O + ("pred_conv1",), ndim=3)
-    b.conv(f"{oh}.occ_pred_conv.3", O + ("pred_conv2",), ndim=3)
+        b.convbn(f"{src}occ_convs.{i}.0", f"{src}occ_convs.{i}.1",
+                 dst + (f"occ_conv{i}",), ndim=3)
+    b.convbn(f"{src}voxel_soft_weights.0", f"{src}voxel_soft_weights.1",
+             dst + ("soft_weight_conv1",), ndim=3)
+    b.conv(f"{src}voxel_soft_weights.3", dst + ("soft_weight_conv2",),
+           ndim=3)
+    b.convbn(f"{src}occ_pred_conv.0", f"{src}occ_pred_conv.1",
+             dst + ("pred_conv1",), ndim=3)
+    b.conv(f"{src}occ_pred_conv.3", dst + ("pred_conv2",), ndim=3)
 
 
 def _leaves(tree, prefix=()):

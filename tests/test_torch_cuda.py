@@ -13,9 +13,13 @@ import torch
 
 from fbbev_tpu_torch import geometry
 from fbbev_tpu_torch.ops import pallas_conv as K7
+from fbbev_tpu_torch.ops import pallas_conv3d as K6
 from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
+from fbbev_tpu_torch.ops import pallas_occ_fuse as K9
+from fbbev_tpu_torch.ops import pallas_occ_tail as K8
 from fbbev_tpu_torch.ops import pallas_pool as K2
 from fbbev_tpu_torch.ops import pallas_sample as K3
+from fbbev_tpu_torch.ops import pallas_warp as K5
 
 pytestmark = pytest.mark.cuda
 
@@ -133,6 +137,103 @@ def test_k7_zslab_matches_conv3d(dev):
     ref = (want,) + torch.autograd.grad(want, (x, m.weight, m.bias), gy)
     for a, b in zip(got, ref):
         assert ((a - b).abs() / b.abs().clamp(min=1.0)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_kernel_matches_plain(dev, dtype):
+    """K5 (K1's warp stage alone) vs ``grid_sample_3d`` on the flow's grid,
+    a rotation with out-of-volume corners.  f32: 1e-4 absolute (the two
+    compute the source coordinates in index units and through the [-1, 1]
+    grid).  bf16: the kernel rounds each tent weight to bf16 as the TPU
+    kernel does, the plain version keeps it f32, both round the sum once:
+    within 2^-7 of the volume's largest magnitude."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    vol = torch.randn(1, 8, 40, 40, 256, generator=g).to(dev, dtype)
+    th = 0.1
+    mat = torch.eye(4)[None].clone()
+    mat[0, 0, 0] = mat[0, 1, 1] = np.cos(th)
+    mat[0, 0, 1], mat[0, 1, 0] = -np.sin(th), np.sin(th)
+    mat[0, :3, 3] = torch.tensor([3.7, -2.2, 0.3])
+    mat[0, 2, 0] = 0.01
+    mat = mat.to(dev)
+    before = K5.launches
+    got = K5.warp_affine_3d(vol, mat)
+    assert K5.launches == before + 1
+    want = K5.warp_affine_3d_plain(vol, mat)
+    assert got.shape == want.shape == (1, 40, 40, 8, 256)
+    tol = 1e-4 if dtype == torch.float32 else \
+        2.0 ** -7 * vol.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 64, 10, 13, 3), 80),    # ragged x tile and Cout, 6 of 8 fragments
+    ((1, 128, 20, 20, 8), 64),   # one row of 8 z per block
+    ((1, 64, 5, 18, 2), 128),    # four rows of 2 z per block
+    ((1, 64, 4, 16, 12), 64),    # two fragments per warp
+])
+def test_k6_kernel_matches_plain(dev, dtype, shape, cout):
+    """K6 vs ``F.conv3d`` in f32.  f32: 1e-4 of max(1, |y|); bf16: 2e-2 of
+    max(1, |y|), one bf16 rounding of f32 sums taken in another order."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn(*shape, generator=g).to(dev, dtype)
+    w = (torch.randn(cout, shape[1], 3, 3, 3, generator=g)
+         / (27 * shape[1]) ** 0.5).to(dev, dtype)
+    before = K6.launches
+    got = K6.conv3d_3x3x3(x, w)
+    assert K6.launches == before + 1
+    want = K6.conv3d_3x3x3_plain(x, w)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    d = (got.float() - want.float()).abs() / want.float().abs().clamp(
+        min=1.0)
+    assert d.max().item() <= tol
+
+
+def _occ_levels(g, dev, dtype, C, Y=16, X=24, Z=16, factors=(1, 2, 4, 8)):
+    levels = [torch.randn(1, C, Y // f, X // f, Z // f, generator=g).to(
+        dev, dtype) for f in factors]
+    w = torch.softmax(torch.randn(1, len(factors), Y, X, Z, generator=g),
+                      1).to(dev, dtype)
+    return levels, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_kernel_matches_plain(dev, dtype):
+    """K8 vs its plain version, factors 1/2/4/8 as at the flagship.  The
+    lerps, the blend and the affine round at the same points in both, so
+    they agree exactly; the class product sums exact products in f32 in
+    another order: logits within one rounding of the type (2^-7 of
+    max(1, |logit|) in bf16, 1e-5 in f32), labels on >= 99.5% of voxels
+    (near-ties)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    levels, w = _occ_levels(g, dev, dtype, 32)
+    a = (torch.rand(32, generator=g) + 0.5).to(dev)
+    b = torch.randn(32, generator=g).to(dev)
+    k2 = torch.randn(32, 19, generator=g).to(dev)
+    before = K8.launches
+    lab, lg = K8.occ_tail(levels, w, a, b, k2, return_logits=True)
+    assert K8.launches == before + 1
+    wlab, wlg = K8.occ_tail_plain(levels, w, a, b, k2, return_logits=True)
+    assert lab.dtype == torch.int64 and lab.shape == (1, 16, 24, 16)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    d = (lg.float() - wlg.float()).abs() / wlg.float().abs().clamp(min=1.0)
+    assert d.max().item() <= tol
+    assert (lab == wlab).float().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_kernel_matches_plain(dev, dtype):
+    """K9 vs its plain version: the same rounded ops in the same order,
+    so equal."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    levels, w = _occ_levels(g, dev, dtype, 128)
+    before = K9.launches
+    got = K9.fuse_multiscale(levels, w)
+    assert K9.launches == before + 1
+    want = K9.fuse_multiscale_plain(levels, w)
+    assert got.shape == (1, 128, 16, 24, 16) and got.dtype == dtype
+    assert torch.equal(got, want)
 
 
 def test_small_train_steps_on_card(dev):

@@ -96,8 +96,9 @@ def test_ego_to_cam_pixels_matches(rng):
 
 @pytest.mark.parametrize("step", [1, 3])
 def test_flow_matrix_matches(step):
-    """The index-unit history flow of K1 and the normalised warp grid it
-    encodes, against the JAX package (1e-5)."""
+    """The index-unit history flow of K1 and K5 and the normalised warp
+    grid it encodes (``flow_grid``, K5's plain version), against the JAX
+    package (1e-5)."""
     rng = np.random.RandomState(step)
     dx, bx, _ = tgeo.gen_dx_bx(*FLAG_GRID)
     f2b = tgeo.feat2bev_matrix(dx, bx)
@@ -121,3 +122,6 @@ def test_flow_matrix_matches(step):
     src = got[:, :3] @ np.array([x, y, z, 1.0], np.float32)
     norm = src / np.array([99.0, 99.0, 7.0]) * 2.0 - 1.0
     np.testing.assert_allclose(norm, grid[:, z, y, x], atol=1e-5)
+    tgrid = tgeo.flow_grid(torch.from_numpy(got), (8, 100, 100)).numpy()
+    np.testing.assert_allclose(tgrid, grid.transpose(0, 2, 3, 1, 4),
+                               atol=1e-5)

@@ -14,7 +14,8 @@ kernels, run through the Pallas interpreter on CPU.
   of ``pallas_conv.conv3x3``.
 * K7's z-slab route of the 3x3x3 convs (``Conv3dZSlabK7``) vs the JAX
   package's ``Conv3DZSlab``, forward and gradients.
-* The wrappers of K1-K3 and K7's forward refuse inputs that require grad.
+* The wrappers of K1-K3, K5, K6, K8, K9 and K7's forward refuse inputs
+  that require grad.
 
 Tolerances are float32 rounding of differently ordered sums (stated per
 test); the bf16 cases allow the bf16 rounding of the tent weights both
@@ -35,9 +36,13 @@ from fbbev_tpu.ops import pallas_sample as jsample
 from fbbev_tpu_torch import geometry as tgeo
 from fbbev_tpu_torch.ops import deform_attn as tda
 from fbbev_tpu_torch.ops import pallas_conv as K7
+from fbbev_tpu_torch.ops import pallas_conv3d as K6
 from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
+from fbbev_tpu_torch.ops import pallas_occ_fuse as K9
+from fbbev_tpu_torch.ops import pallas_occ_tail as K8
 from fbbev_tpu_torch.ops import pallas_pool as K2
 from fbbev_tpu_torch.ops import pallas_sample as K3
+from fbbev_tpu_torch.ops import pallas_warp as K5
 
 from tests.test_torch_slice import flow
 
@@ -399,10 +404,23 @@ def _requires_grad_calls():
             torch.randn(1, 8, 2, 4), (2, 4), torch.rand(1, 3, 2, 2, 2),
             torch.rand(1, 3, 2, 2, requires_grad=True))),
         ("K7", lambda: K7.conv3x3_s1(g, torch.randn(8, 8, 3, 3))),
+        ("K5", lambda: K5.warp_affine_3d(
+            torch.randn(1, 2, 4, 4, 8, requires_grad=True), mat)),
+        ("K6", lambda: K6.conv3d_3x3x3(
+            torch.randn(1, 16, 4, 4, 2),
+            torch.randn(16, 16, 3, 3, 3, requires_grad=True))),
+        ("K8", lambda: K8.occ_tail(
+            [torch.randn(1, 4, 2, 2, 2), torch.randn(1, 4, 1, 1, 1)],
+            torch.rand(1, 2, 2, 2, 2, requires_grad=True), torch.ones(4),
+            torch.zeros(4), torch.randn(4, 3))),
+        ("K9", lambda: K9.fuse_multiscale(
+            [torch.randn(1, 4, 2, 2, 2, requires_grad=True),
+             torch.randn(1, 4, 1, 1, 1)], torch.rand(1, 2, 2, 2, 2))),
     ]
 
 
-@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K7"])
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K5", "K6", "K7", "K8",
+                                   "K9"])
 def test_wrappers_refuse_inputs_that_require_grad(which):
     """A kernel without a backward would return a tensor with no
     ``grad_fn`` and cut the graph silently: the wrapper raises instead,
