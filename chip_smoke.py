@@ -36,6 +36,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and ``coarse_pred=False, occ_fuse=True`` (3 frames: K1 and K9 per
    frame), each with its launch counts set to 0 just before it and read
    just after, and the small card-vs-CPU label check for the first.
+9. Holds K10 (deformable sampling from precomputed corners, the JAX
+   package's drop-in op, on no model path: 0 launches in every stream)
+   against its plain version at K3's cross-attention shapes.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -43,7 +46,8 @@ Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ``python3 chip_smoke.py --profile`` instead builds the kernels and prints
 the flagship frame time and its per-stage and per-kernel device times, for
 the kernel-routed configuration and the default one, then the flagship
-train step's time and its device time by kernel.
+train step's time and its device time by kernel.  ``--k6-plans`` times
+every tile plan of K6's bf16 kernel at its flagship shapes.
 """
 
 import json
@@ -109,6 +113,33 @@ def cuda_time(fn, iters=20, warmup=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def graph_time(fn, reps=10, replays=5):
+    """Mean ms per call of ``reps`` calls captured in one CUDA graph and
+    replayed ``replays`` times (CUDA events): the device time of the calls
+    without the host's per-call launch cost."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (reps * replays)
 
 
 def bound(nbytes, f32_flops=0.0, tc_flops=0.0):
@@ -289,17 +320,45 @@ def check_k1(dev, epilogue=True):
                  bound(nbytes, f32_flops=warp_flops, tc_flops=tc), None)
 
 
-def unported_bounds():
-    """The bound of the one TPU kernel not ported yet, K10 (K3's math from
-    precomputed corners: 4 x int32 index + f32 weight per sample) at the
-    cross-attention shapes; bytes = inputs read once + outputs written
-    once."""
-    s3 = 6 * 4096 * 8 * 8
-    nbytes = 6 * 704 * 80 * 2 + s3 * 4 * 8 + s3 * 4 + 6 * 4096 * 80 * 4
-    f32 = 6 * 4096 * 80 * 8 * 4 * 2.0
-    b = bound(nbytes, f32_flops=f32)
-    log(f"bound K10 pallas_deform: {b[0]:.4f} ms ({b[1]}; "
-        f"{nbytes / 1e6:.1f} MB, {f32 / 1e9:.2f} GFLOP)")
+def check_k10(dev):
+    """K10 at K3's cross-attention shapes (B 6, 16x44 map, heads 8, hd 10,
+    Q 4096, P 8), bf16 value map: the corner entry against its plain
+    version on the same precomputed corners (tolerance 1e-4, as K3).  No
+    path of the JAX package reaches K10 (its docstring: "the model uses
+    the XLA path"), so it launches 0 times per frame; it is held here as
+    the drop-in op it is.  Bound: bytes of the value map, the corner rows
+    (int32 index + f32 weight per corner) and the output, once."""
+    import torch
+    from fbbev_tpu_torch.ops import pallas_deform as K10
+    B, H, W, heads, hd, Q, P = 6, 16, 44, 8, 10, 4096, 8
+    rng = np.random.RandomState(14)
+    value = torch.from_numpy(rng.randn(B, H * W, heads, hd).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    loc = torch.from_numpy(rng.uniform(-0.05, 1.05, (B, Q, heads, P, 2))
+                           .astype(np.float32)).to(dev)
+    attn = torch.softmax(torch.from_numpy(rng.randn(B, Q, heads, P).astype(
+        np.float32)), -1).to(dev)
+    idx, wgt = K10.corners(loc, attn, H, W)
+    got = K10.deformable_sample_attend_corners(value, idx, wgt, heads, P)
+    want = K10.deformable_sample_attend_corners_plain(value, idx, wgt, heads,
+                                                      P)
+    drop_in = K10.pallas_deformable_sample_attend(value, (H, W), loc, attn)
+    torch.cuda.synchronize()
+    if not torch.equal(drop_in, got):
+        raise AssertionError("K10 drop-in differs from its corner entry")
+    err = (got - want).abs().max().item()
+    ms = cuda_time(lambda: K10.deformable_sample_attend_corners(
+        value, idx, wgt, heads, P))
+    plain_ms = cuda_time(lambda: K10.deformable_sample_attend_corners_plain(
+        value, idx, wgt, heads, P))
+    nbytes = value.numel() * 2 + idx.numel() * 4 + wgt.numel() * 4 + \
+        got.numel() * 4
+    log("K10 pallas_deform: no path of the JAX package reaches it; 0 "
+        "launches per frame in every stream")
+    return entry("pallas_deform", "fbbev_tpu_torch/csrc/msda.cu",
+                 "fbbev_tpu/ops/pallas_deform.py:61", err, 1e-4, ms,
+                 plain_ms, bound(nbytes, f32_flops=got.numel() * P * 4
+                                 * 2.0), None)
 
 
 def flagship_flow_matrix(dev):
@@ -371,15 +430,19 @@ def check_k6(dev):
     """K6 at each of its flagship shapes in bf16 (f32 at 25x25x2 256->256)
     against the plain version (``F.conv3d`` in f32, no TF32); times of
     kernel, plain version and cuDNN (``F.conv3d`` bf16, channels-last),
-    summed over the 16 convs of one frame.  Tolerance: 2e-2 of max(1, |y|)
-    in bf16 (both sum in f32 and round once), 1e-4 in f32;
+    summed over the 16 convs of one frame: per call (CUDA events around
+    back-to-back calls, host launch cost included, as ``ms`` and
+    ``library_ms``) and replayed from a CUDA graph (device time alone, as
+    ``graph_ms`` and ``library_graph_ms``).  Tolerance: 2e-2 of max(1,
+    |y|) in bf16 (both sum in f32 and round once), 1e-4 in f32;
     ``max_abs_err`` is the largest absolute bf16 error, held against 2e-2
     of max(1, max |y|)."""
     import torch
     import torch.nn.functional as F
     from fbbev_tpu_torch.ops import pallas_conv3d as K6
     g = torch.Generator().manual_seed(11)
-    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, flops=0.0)
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, gms=0.0, glib=0.0, bytes=0.0,
+               flops=0.0)
     err_abs, tol_abs, rel = 0.0, 0.0, 0.0
     cl = torch.channels_last_3d
     for n, Y, X, Z, ci, co in K6_SHAPES:
@@ -411,22 +474,68 @@ def check_k6(dev):
                 t = [cuda_time(lambda: K6.conv3d_3x3x3(x, w), iters=10),
                      cuda_time(lambda: K6.conv3d_3x3x3_plain(x, w), iters=3,
                                warmup=1),
-                     cuda_time(lambda: F.conv3d(x, wl, padding=1), iters=10)]
-            log(f"K6 {Y}x{X}x{Z} {ci}->{co} x{n}: kernel {t[0]:.4f} plain "
-                f"{t[1]:.4f} cuDNN {t[2]:.4f} ms")
-            for k, v in zip(("ms", "plain", "lib"), t):
+                     cuda_time(lambda: F.conv3d(x, wl, padding=1), iters=10),
+                     graph_time(lambda: K6.conv3d_3x3x3(x, w)),
+                     graph_time(lambda: F.conv3d(x, wl, padding=1))]
+            flops = 2.0 * Y * X * Z * 27 * ci * co
+            log(f"K6 {Y}x{X}x{Z} {ci}->{co} x{n} "
+                f"{K6.plan_bf16(1, Y, X, Z, ci, co, K6._sms(x.device))}: "
+                f"kernel {t[0]:.4f} plain {t[1]:.4f} cuDNN {t[2]:.4f} ms per "
+                f"call; graph kernel {t[3]:.4f} ({flops / t[3] / 1e9:.1f} "
+                f"TFLOP/s) cuDNN {t[4]:.4f} ms")
+            for k, v in zip(("ms", "plain", "lib", "gms", "glib"), t):
                 tot[k] += n * v
             tot["bytes"] += n * (x.numel() * (ci + co) / ci + w.numel()) * 2
-            tot["flops"] += n * 2.0 * Y * X * Z * 27 * ci * co
+            tot["flops"] += n * flops
     b = bound(tot["bytes"], tc_flops=tot["flops"])
-    log(f"K6 over the 16 convs of a frame: kernel {tot['ms']:.4f} ms, "
-        f"cuDNN {tot['lib']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+    log(f"K6 over the 16 convs of a frame: kernel {tot['ms']:.4f} ms per "
+        f"call, {tot['gms']:.4f} ms from a graph; cuDNN {tot['lib']:.4f} / "
+        f"{tot['glib']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}; "
         f"{tot['flops'] / 1e9:.1f} GFLOP)")
     out = entry("conv3d", "fbbev_tpu_torch/csrc/conv3d.cu",
                 "fbbev_tpu/ops/pallas_conv3d.py:130", err_abs, tol_abs,
                 tot["ms"], tot["plain"], b, tot["lib"])
-    out["max_rel_err"] = rel
+    out.update(max_rel_err=rel, graph_ms=tot["gms"],
+               library_graph_ms=tot["glib"])
     return out
+
+
+def k6_plans(dev):
+    """``--k6-plans``: at each distinct K6 shape, every legal tile plan of
+    the bf16 kernel (``pallas_conv3d.plans_bf16``) checked against the
+    plain version (2e-2 of max(1, |y|)) and timed from a CUDA graph,
+    fastest first, with the model's rank and the plan it picks."""
+    import torch
+    from fbbev_tpu_torch.ops import _cuda
+    from fbbev_tpu_torch.ops import pallas_conv3d as K6
+    g = torch.Generator().manual_seed(11)
+    sms = K6._sms(dev)
+    for Y, X, Z, ci, co in sorted({s[1:] for s in K6_SHAPES}):
+        x = torch.randn(1, Y, X, Z, ci, generator=g).to(dev, torch.bfloat16)
+        w = (torch.randn(co, ci, 3, 3, 3, generator=g)
+             / (27 * ci) ** 0.5).to(dev, torch.bfloat16)
+        wk = w.permute(2, 3, 4, 0, 1).reshape(27, co, ci).contiguous()
+        want = K6.conv3d_3x3x3_plain(x.permute(0, 4, 1, 2, 3), w).permute(
+            0, 2, 3, 4, 1).float()
+        y = torch.empty(1, Y, X, Z, co, dtype=torch.bfloat16, device=dev)
+        ranked = sorted(K6.plans_bf16(1, Y, X, Z, ci, co, sms))
+        rows = []
+        for rank, (_, p) in enumerate(ranked):
+            _cuda.check(K6._launch_bf16(x, wk, y, p), "conv3d")
+            torch.cuda.synchronize()
+            e = ((y.float() - want).abs() / want.abs().clamp(min=1.0)).max()
+            if not e.item() <= 2e-2:
+                raise AssertionError(f"K6 plan {p} differs: {e.item()}")
+            rows.append((graph_time(lambda: K6._launch_bf16(x, wk, y, p)),
+                         rank, p))
+        rows.sort()
+        flops = 2.0 * Y * X * Z * 27 * ci * co
+        log(f"K6 plans {Y}x{X}x{Z} {ci}->{co}: {len(rows)} plans; picked "
+            f"{ranked[0][1]} {next(r[0] for r in rows if r[1] == 0):.4f} "
+            f"ms, fastest {rows[0][0]:.4f} ms "
+            f"({flops / rows[0][0] / 1e9:.1f} TFLOP/s)")
+        for t, rank, p in rows[:6]:
+            log(f"  {t:.4f} ms  model rank {rank:3d}  {p}")
 
 
 def occ_levels(dev, dt, C, g):
@@ -730,7 +839,8 @@ def run_train(dev):
 
 
 # the port's route arguments of the kernel-routed configurations, and the
-# launches of each kernel per frame of their streams (any other: none)
+# launches of each kernel per frame of their streams (any other, K10's
+# pallas_deform among them: none)
 ROUTED = dict(fuse_warp=False, pallas_conv3d=True, occ_tail=True)
 BLEND = dict(coarse_pred=False, occ_fuse=True)
 PER_FRAME = {
@@ -744,9 +854,9 @@ PER_FRAME = {
 
 def _counted():
     """(module, counter attribute, name) of every serving kernel."""
-    from fbbev_tpu_torch.ops import pallas_conv3d, pallas_fuse_warp, \
-        pallas_occ_fuse, pallas_occ_tail, pallas_pool, pallas_sample, \
-        pallas_warp
+    from fbbev_tpu_torch.ops import pallas_conv3d, pallas_deform, \
+        pallas_fuse_warp, pallas_occ_fuse, pallas_occ_tail, pallas_pool, \
+        pallas_sample, pallas_warp
     return [(pallas_pool, "launches", "bev_pool"),
             (pallas_sample, "launches", "msda"),
             (pallas_sample, "selfattn_launches", "msda_selfattn"),
@@ -754,7 +864,8 @@ def _counted():
             (pallas_warp, "launches", "warp_affine"),
             (pallas_conv3d, "launches", "conv3d"),
             (pallas_occ_tail, "launches", "occ_tail"),
-            (pallas_occ_fuse, "launches", "occ_fuse")]
+            (pallas_occ_fuse, "launches", "occ_fuse"),
+            (pallas_deform, "launches", "pallas_deform")]
 
 
 def reset_counts():
@@ -908,6 +1019,11 @@ def profile_frames(pipe, imgs, frames, ours, label):
                      and e.device_type != cuda), key=dt, reverse=True):
         log(f"  stage {e.key[8:]:22s} {dt(e):8.3f} ms device (torch "
             f"ops)  {e.cpu_time_total / 1e3 / frames:8.3f} ms host")
+    for o in ours:
+        mine = [e for e in kern if o in e.key]
+        if mine:
+            log(f"  port kernels {o:16s} {sum(dt(e) for e in mine):8.3f} ms "
+                f"x{sum(e.count for e in mine) // frames} per frame")
     for e in sorted(kern, key=dt, reverse=True)[:16]:
         tag = "port" if any(o in e.key for o in ours) else "    "
         log(f"  {tag} kernel {dt(e):8.3f} ms x{e.count // frames:<3d} "
@@ -924,7 +1040,7 @@ def profile(dev, frames=5):
     from fbbev_tpu_torch.models import FBOCC
     from fbbev_tpu_torch.serving import FixedRigPipeline
     ours = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
-            "conv3d_", "occ_tail_kernel")
+            "conv3d_", "split_sum", "occ_tail_kernel")
     g = torch.Generator().manual_seed(1)
     imgs = [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
             for _ in range(3)]
@@ -1049,6 +1165,9 @@ def main():
         profile(dev)
         profile_train(dev)
         return 0
+    if "--k6-plans" in sys.argv[1:]:
+        k6_plans(dev)
+        return 0
 
     # the JSON line lists each kernel once, at its main-path shapes; the
     # same kernels at their other shapes / variant are checked and logged
@@ -1060,7 +1179,7 @@ def main():
     check_k1(dev, epilogue=False)
     k7 = check_k7(dev)
     routed = [check_k5(dev), check_k6(dev), check_k8(dev), check_k9(dev)]
-    unported_bounds()
+    k10 = check_k10(dev)
     # each serving path with the counts set to 0 just before it
     counts, median_ms = run_stream(dev, "default", FRAMES)
     log(f"flagship median frame {median_ms:.2f} ms (frames 2..{FRAMES})")
@@ -1073,13 +1192,16 @@ def main():
     for k in routed:
         k["launches"] = (counts_b if k["name"] == "occ_fuse"
                          else counts_r)[k["name"]]
+    # on no path: its count, 0 in every stream (each checked against
+    # PER_FRAME), as the default stream read it
+    k10["launches"] = counts[k10["name"]]
     run_small_parity(dev)
     run_small_parity(dev, **ROUTED)
     train_counts, step_ms, peak = run_train(dev)
     for k in k7:
         k["launches"] = train_counts[k["name"]]
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
-    log(json.dumps({"kernels": kernels + k7 + routed}))
+    log(json.dumps({"kernels": kernels + k7 + routed + [k10]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,15 @@
 //
 // Bound: bytes (value map, locations and weights read once, output written
 // once); about 4 * P * 2 flops per output element.
+//
+// fbbev_msda_corners is the same sum from precomputed corners: it
+// replaces fbbev_tpu/ops/pallas_deform.py::pallas_deformable_sample_attend
+// (pl.pallas_call :102), whose bilinear corners -- index clipped into the
+// map, weight tent_x * tent_y * attn, zero outside it -- are computed
+// outside the kernel.  Each thread reads a sample's four (index, weight)
+// pairs as one 16-byte int4 and one float4 (the threads of a head share
+// the rows) and rounds each weight to the value type at the point K3 does.
+// Bound: bytes (value map, corner rows and output once).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -62,6 +71,36 @@ __global__ void msda_kernel(const T* __restrict__ value,
   out[i] = acc;
 }
 
+// One thread per (map, query, channel); idx / wgt rows are the samples
+// (q, h, p) of map b in that order, four corners each.
+template <typename T>
+__global__ void msda_corners_kernel(const T* __restrict__ value,
+                                    const int4* __restrict__ idx,
+                                    const float4* __restrict__ wgt,
+                                    float* __restrict__ out, int64_t total,
+                                    int HW, int Q, int heads, int P,
+                                    int hd) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int C = heads * hd;
+  const int c = (int)(i % C);
+  const int64_t bq = i / C;            // b * Q + q
+  const int64_t b = bq / Q;
+  const int h = c / hd;
+  const int64_t row = (bq * heads + h) * P;
+  const T* vb = value + b * (int64_t)HW * C + c;
+  float acc = 0.f;
+  for (int p = 0; p < P; ++p) {
+    const int4 k = idx[row + p];
+    const float4 w = wgt[row + p];
+    acc += round_to(w.x, vb) * to_f32(vb[(int64_t)k.x * C]);
+    acc += round_to(w.y, vb) * to_f32(vb[(int64_t)k.y * C]);
+    acc += round_to(w.z, vb) * to_f32(vb[(int64_t)k.z * C]);
+    acc += round_to(w.w, vb) * to_f32(vb[(int64_t)k.w * C]);
+  }
+  out[i] = acc;
+}
+
 template <typename T>
 int launch(const void* value, const float* loc, const float* attn,
            float* out, int B, int H, int W, int Q, int heads, int P, int hd,
@@ -72,6 +111,22 @@ int launch(const void* value, const float* loc, const float* attn,
     const int64_t blocks = (total + threads - 1) / threads;
     msda_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const T*)value, loc, attn, out, total, H, W, Q, heads, P, hd);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_corners(const void* value, const void* idx, const void* wgt,
+                   float* out, int B, int HW, int Q, int heads, int P,
+                   int hd, void* stream) {
+  const int64_t total = (int64_t)B * Q * heads * hd;
+  if (total > 0) {
+    const int threads = 256;
+    const int64_t blocks = (total + threads - 1) / threads;
+    msda_corners_kernel<T>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const T*)value, (const int4*)idx, (const float4*)wgt, out,
+            total, HW, Q, heads, P, hd);
   }
   return (int)cudaGetLastError();
 }
@@ -89,4 +144,20 @@ extern "C" int fbbev_msda(const void* value, const float* loc,
                                  P, hd, stream);
   return launch<float>(value, loc, attn, out, B, H, W, Q, heads, P, hd,
                        stream);
+}
+
+// value (B, HW, heads, hd) bf16 (is_bf16=1) or f32; idx (B, Q*heads*P, 4)
+// int32 in [0, HW); wgt (B, Q*heads*P, 4) f32; out (B, Q, heads*hd) f32.
+// idx and wgt must be 16-byte aligned.
+extern "C" int fbbev_msda_corners(const void* value, const void* idx,
+                                  const void* wgt, float* out, int is_bf16,
+                                  int B, int HW, int Q, int heads, int P,
+                                  int hd, void* stream) {
+  if (((uintptr_t)idx | (uintptr_t)wgt) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  if (is_bf16)
+    return launch_corners<__nv_bfloat16>(value, idx, wgt, out, B, HW, Q,
+                                         heads, P, hd, stream);
+  return launch_corners<float>(value, idx, wgt, out, B, HW, Q, heads, P,
+                               hd, stream);
 }

@@ -14,14 +14,23 @@ reads channels-last memory, the JAX package's (B, Y, X, Z, C): the wrapper
 takes ``x.permute(0, 2, 3, 4, 1)`` (free when x is in
 ``torch.channels_last_3d`` memory format, a copy otherwise) and returns y
 as a ``(B, Cout, Y, X, Z)`` view of channels-last storage.  The weights
-are relaid out to the JAX package's (3, 3, 3, Cin, Cout).
+are relaid out to (27, Cout, Cin) for the bf16 kernel (K-major tiles of
+its weight operand) and to the JAX package's (3, 3, 3, Cin, Cout) for the
+f32 one.
 
-CUDA kernel (``csrc/conv3d.cu``): a direct implicit GEMM, one block per
-(rows x 16 columns x all Z output voxels, 64 output channels), the halo --
-z included, zero-filled at the z edges -- and the weights of each
-16-channel chunk staged in shared memory, products on WMMA bf16 with f32
-accumulation; a CUDA-core f32 kernel for f32 inputs.  Bound on the card:
-operations (2 * voxels * 27 * Cin * Cout on the bf16 tensor cores).
+CUDA kernel (``csrc/conv3d.cu``), bf16: an implicit GEMM on Hopper's TMA
+and ``wgmma``.  A block computes the output voxels of one (TY, TX, Z')
+box -- Z' is Z rounded up to a power of two, TY * TX * Z' = BM, 64 or 128
+rows -- for BN (64, 128 or 256) output channels.  Each K step (one tap, 64
+input channels) loads the box shifted by the tap as one TMA tile, zero
+filled outside the volume (the conv's padding), and the tap's weights
+relaid out to (27, Cout, Cin) as another, through a 4-stage mbarrier ring
+into ``wgmma`` with f32 accumulators.  Volumes too small to fill the card
+split K over tap ranges into f32 partials, summed in a fixed order by a
+second pass.  The tile plan is :func:`plan_bf16`'s, computed here and
+passed to the kernel as ints.  f32: a CUDA-core kernel, for the checks.
+Bound on the card: operations (2 * voxels * 27 * Cin * Cout on the bf16
+tensor cores).
 
 The plain version :func:`conv3d_3x3x3_plain` is ``F.conv3d`` in f32
 (cuDNN's TF32 off), cast to x's type, as :func:`pallas_conv.
@@ -32,7 +41,8 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +83,133 @@ def supports(shape: Sequence[int], cout: int) -> bool:
     return _pick_tiles(Y, X, Z, Cin, 2) is not None
 
 
+SMS = 132                       # streaming multiprocessors, H100 SXM
+TC_PER_SM = 989e12 / SMS        # bf16 tensor-core FLOP/s per SM
+L2_PER_SM = 80e9                # L2 -> shared memory bytes/s of one SM
+HBM_BPS = 3.35e12
+SMEM_PER_SM = 232448            # shared memory the blocks of an SM use
+STAGES = 4                      # conv3d.cu kStages
+
+
+class Plan(NamedTuple):
+    """The bf16 kernel's tiling of one conv: the A box is (TY, TX, Zp)
+    output voxels (BM = TY * TX * Zp rows), BN output channels per block,
+    K split over S tap ranges; the grid is (tiles_y * tiles_x, tiles_n,
+    B * S)."""
+    Zp: int
+    TY: int
+    TX: int
+    BM: int
+    BN: int
+    S: int
+    tiles_y: int
+    tiles_x: int
+    tiles_n: int
+
+
+def smem_bytes(BM: int, BN: int) -> int:
+    """conv3d.cu ``smem_bytes``: the ring, 1024 bytes of alignment slack,
+    the barriers."""
+    return STAGES * (BM + BN) * 128 + 1024 + 2 * STAGES * 8
+
+
+def plans_bf16(B: int, Y: int, X: int, Z: int, Cin: int, Cout: int,
+               sms: int = SMS):
+    """Every legal tile plan of the bf16 kernel for x (B, Y, X, Z, Cin) ->
+    Cout, with its ranking key on a card of ``sms`` SMs (see
+    :func:`plan_bf16`)."""
+    if Cin % 64 or Cout % 16 or not 1 <= Z <= 32 or min(B, Y, X) < 1:
+        raise ValueError(f"no bf16 plan for B={B} Y={Y} X={X} Z={Z} "
+                         f"Cin={Cin} Cout={Cout}")
+    Zp = 1 << (Z - 1).bit_length()
+    bns = (64,) if Cout <= 64 else (128,) if Cout <= 128 else (128, 256)
+    out = []
+    for BM in (128, 64):
+        for BN in bns:
+            if BN == 256 and BM != 128:
+                continue
+            tn = -(-Cout // BN)
+            slots = min(2, SMEM_PER_SM // smem_bytes(BM, BN))
+            step = slots * max(BM * BN * 128 / TC_PER_SM,
+                               (BM + BN) * 128 / L2_PER_SM)
+            area = BM // Zp
+            ty = 1
+            while ty <= area:
+                tx = area // ty
+                tyn, txn = -(-Y // ty), -(-X // tx)
+                blocks = B * tyn * txn * tn
+                for S in (1, 3, 9):
+                    waves = -(-blocks * S // (sms * slots))
+                    t = waves * (27 * (Cin // 64) // S * step + 2.5e-6)
+                    if S > 1:
+                        t += (8 * S + 2) * B * Y * X * Z * Cout / HBM_BPS \
+                            + 3e-6
+                    key = (round(t * 1e8), tyn * ty * txn * tx, -BM, S)
+                    out.append((key, Plan(Zp, ty, tx, BM, BN, S, tyn, txn,
+                                          tn)))
+                ty *= 2
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bf16(B: int, Y: int, X: int, Z: int, Cin: int, Cout: int,
+              sms: int = SMS) -> Plan:
+    """The tile plan of the bf16 kernel for x (B, Y, X, Z, Cin) -> Cout on a
+    card of ``sms`` SMs.  Zp = Z rounded up to a power of two; BN = 64 for
+    Cout <= 64, 128 for Cout <= 128, else 128 or 256 (with BM 128).  Over
+    BM in (128, 64), BN, box edges TY, TX (powers of two, TY * TX * Zp =
+    BM) and splits S in (1, 3, 9), the least modelled time: waves of
+    blocks (as many resident per SM as shared memory holds, at most two,
+    sharing it) times a block's K steps plus a fixed ~2.5 us of pipeline
+    fill and epilogue, a K step taking the longer of its products on the
+    SM's tensor cores and its A and B tiles from L2 at ~80 GB/s per SM
+    (the rate that fits the kernel's times at the flagship shapes on an
+    H100 SXM, ``chip_smoke.py --k6-plans``: a step of 128 x 128 tiles
+    takes ~0.41 us, of 128 x 256 ~0.67 us); a split adds its f32 partials
+    through HBM and a second launch.
+    Ties go to the smaller padded volume, the larger BM, the smaller S.
+    Wide tiles win: at 50x50x4 a 91-block grid of 128 x 256 tiles beats
+    every grid that fills the 132 SMs, while the 25x25x2 volumes split."""
+    return min(plans_bf16(B, Y, X, Z, Cin, Cout, sms))[1]
+
+
+_sms_of = {}
+_fns = {}
+
+
+def _sms(dev: torch.device) -> int:
+    if dev not in _sms_of:
+        _sms_of[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sms_of[dev]
+
+
+def _fn(name: str, pointers: int, ints: int):
+    """The library's entry ``name`` with its argument types set (once)."""
+    if name not in _fns:
+        fn = getattr(_cuda.lib("conv3d"), name)
+        fn.argtypes = [ctypes.c_void_p] * pointers + \
+            [ctypes.c_int] * ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _launch_bf16(xh: torch.Tensor, wk: torch.Tensor, y: torch.Tensor,
+                 p: Plan) -> int:
+    """Launch the bf16 kernel under plan ``p``: xh (B, Y, X, Z, Cin), wk
+    (27, Cout, Cin), y (B, Y, X, Z, Cout), all contiguous bf16 on the card;
+    returns the ``cudaError_t``."""
+    B, Y, X, Z, Cin = xh.shape
+    Cout = y.shape[-1]
+    ws = (torch.empty(p.S, B, Y, X, Z, Cout, dtype=torch.float32,
+                      device=xh.device) if p.S > 1 else None)
+    return _fn("fbbev_conv3d_bf16", 4, 12)(
+        xh.data_ptr(), wk.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, Y, X, Z, Cin, Cout, p.Zp,
+        p.TY, p.TX, p.BM, p.BN, p.S, _cuda.stream_ptr(xh))
+
+
 def conv3d_3x3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: x (B, Cin, Y, X, Z), w (Cout, Cin, 3, 3, 3) ->
     (B, Cout, Y, X, Z) in x's type, f32 accumulation."""
@@ -84,32 +221,40 @@ def conv3d_3x3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The convolution (no gradient): CUDA tensors launch the kernel (bf16
-    or f32; Cin and Cout multiples of 16, 1 <= Z <= 32), CPU tensors take
-    the plain version.  Shapes as :func:`conv3d_3x3x3_plain`."""
+    with Cin a multiple of 64, or f32 with Cin a multiple of 16; Cout a
+    multiple of 16, 1 <= Z <= 32), CPU tensors take the plain version.
+    Shapes as :func:`conv3d_3x3x3_plain`."""
     _cuda.refuse_grad("conv3d_3x3x3 (K6)", x, w)
     if not x.is_cuda:
         return conv3d_3x3x3_plain(x, w)
     global launches
     B, Cin, Y, X, Z = x.shape
     Cout = w.shape[0]
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and x.dtype != torch.float32:
         raise ValueError(f"x dtype {x.dtype}")
     if tuple(w.shape) != (Cout, Cin, 3, 3, 3):
         raise ValueError(f"shapes x {tuple(x.shape)} w {tuple(w.shape)}")
-    if Cin % 16 or Cout % 16 or not 1 <= Z <= 32:
-        raise ValueError(f"the kernel needs Cin, Cout multiples of 16 and "
-                         f"1 <= Z <= 32: Cin={Cin} Cout={Cout} Z={Z}")
+    if Cin % (64 if bf16 else 16) or Cout % 16 or not 1 <= Z <= 32:
+        raise ValueError(f"the kernel needs Cin a multiple of "
+                         f"{64 if bf16 else 16}, Cout of 16 and 1 <= Z <= "
+                         f"32: Cin={Cin} Cout={Cout} Z={Z} ({x.dtype})")
     if not w.is_cuda or w.device != x.device:
         raise ValueError("x and w must be on the same card")
     xh = x.permute(0, 2, 3, 4, 1).contiguous()
-    wk = w.to(x.dtype).permute(2, 3, 4, 1, 0).contiguous()
+    if xh.data_ptr() % 16:          # TMA takes 16-byte aligned tensors
+        xh = xh.clone()
     y = torch.empty(B, Y, X, Z, Cout, dtype=x.dtype, device=x.device)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.lib("conv3d").fbbev_conv3d
-    fn.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
-    fn.restype = ci
-    _cuda.check(fn(xh.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                   int(x.dtype == torch.bfloat16), B, Y, X, Z, Cin, Cout,
-                   _cuda.stream_ptr(x)), "conv3d")
+    if bf16:
+        wk = w.to(x.dtype).permute(2, 3, 4, 0, 1).reshape(
+            27, Cout, Cin).contiguous()
+        status = _launch_bf16(xh, wk, y, plan_bf16(B, Y, X, Z, Cin, Cout,
+                                                   _sms(x.device)))
+    else:
+        wk = w.permute(2, 3, 4, 1, 0).contiguous()
+        status = _fn("fbbev_conv3d_f32", 3, 6)(
+            xh.data_ptr(), wk.data_ptr(), y.data_ptr(), B, Y, X, Z, Cin,
+            Cout, _cuda.stream_ptr(x))
+    _cuda.check(status, "conv3d")
     launches += 1
     return y.permute(0, 4, 1, 2, 3)

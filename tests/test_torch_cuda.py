@@ -14,6 +14,7 @@ import torch
 from fbbev_tpu_torch import geometry
 from fbbev_tpu_torch.ops import pallas_conv as K7
 from fbbev_tpu_torch.ops import pallas_conv3d as K6
+from fbbev_tpu_torch.ops import pallas_deform as K10
 from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
 from fbbev_tpu_torch.ops import pallas_occ_fuse as K9
 from fbbev_tpu_torch.ops import pallas_occ_tail as K8
@@ -168,14 +169,19 @@ def test_k5_kernel_matches_plain(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cout", [
-    ((2, 64, 10, 13, 3), 80),    # ragged x tile and Cout, 6 of 8 fragments
-    ((1, 128, 20, 20, 8), 64),   # one row of 8 z per block
-    ((1, 64, 5, 18, 2), 128),    # four rows of 2 z per block
-    ((1, 64, 4, 16, 12), 64),    # two fragments per warp
+    ((2, 64, 10, 13, 3), 80),    # Z' = 4, ragged x / y edge and Cout
+    ((1, 128, 20, 20, 8), 64),   # two K chunks per tap
+    ((1, 64, 5, 18, 2), 128),    # Z' = Z = 2
+    ((1, 64, 4, 16, 12), 64),    # Z' = 16
+    ((1, 256, 25, 25, 2), 256),  # split K (bf16), as the flagship's
+    ((1, 64, 100, 100, 8), 64),  # the flagship's 3D ResNet stage 0
 ])
 def test_k6_kernel_matches_plain(dev, dtype, shape, cout):
     """K6 vs ``F.conv3d`` in f32.  f32: 1e-4 of max(1, |y|); bf16: 2e-2 of
     max(1, |y|), one bf16 rounding of f32 sums taken in another order."""
+    if dtype == torch.bfloat16 and shape[1:] == (256, 25, 25, 2):
+        B, C, Y, X, Z = shape
+        assert K6.plan_bf16(B, Y, X, Z, C, cout, K6._sms(dev)).S > 1
     g = torch.Generator(device="cpu").manual_seed(6)
     x = torch.randn(*shape, generator=g).to(dev, dtype)
     w = (torch.randn(cout, shape[1], 3, 3, 3, generator=g)
@@ -188,6 +194,52 @@ def test_k6_kernel_matches_plain(dev, dtype, shape, cout):
     d = (got.float() - want.float()).abs() / want.float().abs().clamp(
         min=1.0)
     assert d.max().item() <= tol
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 128, 9, 10, 3), 80),    # BN 128 over a ragged Cout
+    ((2, 64, 6, 7, 5), 192),     # BN 128 and 256, B = 2
+    ((1, 64, 5, 4, 16), 48),     # BN 64, Z' = Z = 16
+])
+def test_k6_every_bf16_plan_matches_plain(dev, shape, cout):
+    """Every tile plan ``plans_bf16`` offers (BM 64 / 128, each BN, every
+    box and split), launched directly, vs the plain version: 2e-2 of
+    max(1, |y|), as ``test_k6_kernel_matches_plain``."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    B, C, Y, X, Z = shape
+    xh = torch.randn(B, Y, X, Z, C, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(cout, C, 3, 3, 3, generator=g)
+         / (27 * C) ** 0.5).to(dev, torch.bfloat16)
+    wk = w.permute(2, 3, 4, 0, 1).reshape(27, cout, C).contiguous()
+    want = K6.conv3d_3x3x3_plain(xh.permute(0, 4, 1, 2, 3), w).permute(
+        0, 2, 3, 4, 1).float()
+    plans = [p for _, p in K6.plans_bf16(B, Y, X, Z, C, cout)]
+    assert {(p.BM, p.S) for p in plans} == {(bm, s) for bm in (64, 128)
+                                            for s in (1, 3, 9)}
+    for p in plans:
+        y = torch.full((B, Y, X, Z, cout), float("nan"), device=dev,
+                       dtype=torch.bfloat16)
+        assert K6._launch_bf16(xh, wk, y, p) == 0
+        d = (y.float() - want).abs() / want.abs().clamp(min=1.0)
+        assert d.max().item() <= 2e-2, p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k10_kernel_matches_plain(dev, dtype):
+    """K10's corner entry vs its plain version on the same corners, and the
+    drop-in equal to the entry: 1e-4 (as K3; f32 sums in another order)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    v = torch.randn(2, 16 * 44, 8, 10, generator=g).to(dev, dtype)
+    loc = (torch.rand(2, 101, 8, 8, 2, generator=g) * 1.2 - 0.1).to(dev)
+    attn = torch.softmax(torch.randn(2, 101, 8, 8, generator=g), -1).to(dev)
+    idx, wgt = K10.corners(loc, attn, 16, 44)
+    before = K10.launches
+    got = K10.deformable_sample_attend_corners(v, idx, wgt, 8, 8)
+    assert K10.launches == before + 1
+    want = K10.deformable_sample_attend_corners_plain(v, idx, wgt, 8, 8)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    drop_in = K10.pallas_deformable_sample_attend(v, (16, 44), loc, attn)
+    assert torch.equal(drop_in, got)
 
 
 def _occ_levels(g, dev, dtype, C, Y=16, X=24, Z=16, factors=(1, 2, 4, 8)):

@@ -14,7 +14,10 @@ kernels, run through the Pallas interpreter on CPU.
   of ``pallas_conv.conv3x3``.
 * K7's z-slab route of the 3x3x3 convs (``Conv3dZSlabK7``) vs the JAX
   package's ``Conv3DZSlab``, forward and gradients.
-* The wrappers of K1-K3, K5, K6, K8, K9 and K7's forward refuse inputs
+* K10 (deformable sampling from precomputed corners) vs ``pallas_deform.
+  pallas_deformable_sample_attend``, f32 and bf16 value maps, and its
+  corner entry's plain version vs K3's.
+* The wrappers of K1-K3, K5, K6, K8-K10 and K7's forward refuse inputs
   that require grad.
 
 Tolerances are float32 rounding of differently ordered sums (stated per
@@ -30,6 +33,7 @@ import torch
 import jax
 
 from fbbev_tpu.ops import pallas_conv as jconv
+from fbbev_tpu.ops import pallas_deform as jdeform
 from fbbev_tpu.ops import pallas_fuse_warp as jfw
 from fbbev_tpu.ops import pallas_pool as jpool
 from fbbev_tpu.ops import pallas_sample as jsample
@@ -37,6 +41,7 @@ from fbbev_tpu_torch import geometry as tgeo
 from fbbev_tpu_torch.ops import deform_attn as tda
 from fbbev_tpu_torch.ops import pallas_conv as K7
 from fbbev_tpu_torch.ops import pallas_conv3d as K6
+from fbbev_tpu_torch.ops import pallas_deform as K10
 from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
 from fbbev_tpu_torch.ops import pallas_occ_fuse as K9
 from fbbev_tpu_torch.ops import pallas_occ_tail as K8
@@ -130,6 +135,49 @@ def test_k3_plain_bf16_value_matches_pallas_sample(rng):
         torch.from_numpy(v).to(torch.bfloat16), (H, W),
         torch.from_numpy(loc), torch.from_numpy(a)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- K10
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k10_matches_pallas_deform(rng, dtype):
+    """The drop-in vs the TPU kernel in interpret mode, locations from
+    -0.1 to 1.1 and a Q (37) that is not a multiple of its ``tile_q``
+    (16), as ``test_deform_attn.py::test_pallas_kernel_matches_xla``.
+    Both round each corner weight to the value type and sum exact
+    products in f32: they agree to f32 rounding (1e-5), in bf16 too
+    (tighter than one bf16 rounding of the output)."""
+    B, H, W, heads, hd, Q, P = 2, 6, 9, 4, 8, 37, 4
+    v, loc, a = _k3_inputs(rng, B, H, W, heads, hd, Q, P)
+    jv = jnp.asarray(v).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                               else jnp.float32)
+    want = np.asarray(jdeform.pallas_deformable_sample_attend(
+        jv, (H, W), jnp.asarray(loc), jnp.asarray(a), interpret=True))
+    before = K10.launches
+    got = K10.pallas_deformable_sample_attend(
+        torch.from_numpy(v).to(dtype), (H, W), torch.from_numpy(loc),
+        torch.from_numpy(a))
+    assert K10.launches == before        # the CPU takes the plain version
+    assert got.dtype == torch.float32 and got.shape == (B, Q, heads * hd)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k10_corners_plain_matches_k3_plain(rng, dtype):
+    """The corner entry's plain version on :func:`pallas_deform.corners`
+    vs K3's plain version on the same locations: the same rounded weights
+    and exact products, summed in another order (1e-5)."""
+    B, H, W, heads, hd, Q, P = 2, 16, 44, 8, 10, 50, 8
+    v, loc, a = _k3_inputs(rng, B, H, W, heads, hd, Q, P)
+    value = torch.from_numpy(v).to(dtype)
+    loc, a = torch.from_numpy(loc), torch.from_numpy(a)
+    idx, wgt = K10.corners(loc, a, H, W)
+    assert idx.dtype == torch.int32 and wgt.dtype == torch.float32
+    assert idx.shape == wgt.shape == (B, Q * heads * P, 4)
+    assert int(idx.min()) >= 0 and int(idx.max()) < H * W
+    got = K10.deformable_sample_attend_corners(value, idx, wgt, heads, P)
+    want = tda.deformable_sample_attend(value, (H, W), loc, a)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_bilinear_sample_matrix_matches(rng):
@@ -416,11 +464,14 @@ def _requires_grad_calls():
         ("K9", lambda: K9.fuse_multiscale(
             [torch.randn(1, 4, 2, 2, 2, requires_grad=True),
              torch.randn(1, 4, 1, 1, 1)], torch.rand(1, 2, 2, 2, 2))),
+        ("K10", lambda: K10.pallas_deformable_sample_attend(
+            torch.randn(1, 8, 2, 4), (2, 4), torch.rand(1, 3, 2, 2, 2),
+            torch.rand(1, 3, 2, 2, requires_grad=True))),
     ]
 
 
 @pytest.mark.parametrize("which", ["K1", "K2", "K3", "K5", "K6", "K7", "K8",
-                                   "K9"])
+                                   "K9", "K10"])
 def test_wrappers_refuse_inputs_that_require_grad(which):
     """A kernel without a backward would return a tensor with no
     ``grad_fn`` and cut the graph silently: the wrapper raises instead,

@@ -227,6 +227,113 @@ def test_k6_module_routes_as_convbn(monkeypatch):
     assert calls == {"jax": 1, "port": 1}
 
 
+# K6's convs in one flagship frame: (count, Y, X, Z, Cin, Cout), as
+# ``chip_smoke.py::K6_SHAPES``
+K6_SHAPES = [(4, 100, 100, 8, 64, 64), (3, 50, 50, 4, 128, 128),
+             (3, 25, 25, 2, 256, 256), (1, 100, 100, 8, 256, 256),
+             (1, 50, 50, 4, 256, 256), (1, 25, 25, 2, 256, 256),
+             (1, 100, 100, 8, 256, 128), (1, 50, 50, 4, 256, 128),
+             (1, 25, 25, 2, 256, 128)]
+
+
+def _emulate_k6_bf16_kernel(x, k, p):
+    """The bf16 kernel's decomposition under plan ``p``, in f32 on the CPU:
+    x (B, Y, X, Z, Cin), k (3, 3, 3, Cin, Cout).  Per block (M tile, N
+    tile, b, split): for each tap of its range and each 64-channel chunk,
+    the A box (TY, TX, Zp, 64) of x at (y0+dy-1, x0+dx-1, dz-1, k0), zero
+    outside the volume (TMA's fill), times the B box (BN, 64) of the
+    weights relaid out to (27, Cout, Cin), zero past Cout; then the
+    epilogue's masked store into the split's partials, and the partials
+    summed in split order."""
+    B, Y, X, Z, Cin = x.shape
+    Cout = k.shape[-1]
+    w27 = k.reshape(27, Cin, Cout).permute(0, 2, 1)
+    w27 = torch.cat([w27, w27.new_zeros(27, p.tiles_n * p.BN - Cout, Cin)], 1)
+    # the zero fill of every box the grid can ask for
+    xp = x.new_zeros(B, p.tiles_y * p.TY + 2, p.tiles_x * p.TX + 2, p.Zp + 2,
+                     Cin)
+    xp[:, 1:Y + 1, 1:X + 1, 1:Z + 1] = x
+    parts = x.new_zeros(p.S, B, Y, X, Z, Cout)
+    taps = 27 // p.S
+    for b, s, tyi, txi, tn in np.ndindex(B, p.S, p.tiles_y, p.tiles_x,
+                                         p.tiles_n):
+        y0, x0, co0 = tyi * p.TY, txi * p.TX, tn * p.BN
+        acc = x.new_zeros(p.BM, p.BN)
+        for tap in range(s * taps, (s + 1) * taps):
+            dy, dx, dz = tap // 9, tap // 3 % 3, tap % 3
+            for k0 in range(0, Cin, 64):
+                a = xp[b, y0 + dy:y0 + dy + p.TY, x0 + dx:x0 + dx + p.TX,
+                       dz:dz + p.Zp, k0:k0 + 64]
+                acc += a.reshape(p.BM, 64) @ w27[tap, co0:co0 + p.BN,
+                                                 k0:k0 + 64].T
+        acc = acc.reshape(p.TY, p.TX, p.Zp, p.BN)
+        ny, nx = min(p.TY, Y - y0), min(p.TX, X - x0)
+        nc = min(p.BN, Cout - co0)
+        if ny > 0 and nx > 0:
+            parts[s, b, y0:y0 + ny, x0:x0 + nx, :, co0:co0 + nc] = \
+                acc[:ny, :nx, :Z, :nc]
+    y = parts[0]
+    for s in range(1, p.S):
+        y = y + parts[s]
+    return y
+
+
+def _check_plan(p, B, Y, X, Z, Cin, Cout, sms=K6.SMS):
+    """What the kernel and its launch need of a plan."""
+    assert p.Zp >= Z and p.Zp < 2 * Z and p.Zp & (p.Zp - 1) == 0
+    assert p.BM == p.TY * p.TX * p.Zp and p.BM in (64, 128)
+    assert p.BN in (64, 128, 256) and p.S in (1, 3, 9)
+    assert p.BN < 256 or p.BM == 128
+    assert max(p.TY, p.TX, p.Zp) <= 256              # TMA box edges
+    assert (p.tiles_y - 1) * p.TY < Y <= p.tiles_y * p.TY
+    assert (p.tiles_x - 1) * p.TX < X <= p.tiles_x * p.TX
+    assert (p.tiles_n - 1) * p.BN < Cout <= p.tiles_n * p.BN
+    smem = 4 * (p.BM + p.BN) * 128 + 1024 + 64       # conv3d.cu smem_bytes
+    assert smem == K6.smem_bytes(p.BM, p.BN) and smem <= 232448
+    # split K only where the unsplit grid leaves SMs idle
+    blocks = B * p.tiles_y * p.tiles_x * p.tiles_n
+    assert p.S == 1 or blocks < sms, (p, blocks)
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_k6_bf16_plan_of_the_flagship_convs(shape):
+    """The bf16 kernel's tile plan at each of the flagship frame's K6
+    shapes: a legal box and grid; split K at the 25x25x2 volumes, whose
+    unsplit grids fill fewer than the card's 132 SMs; 128 x 256 tiles at
+    100x100x8 256->256, the largest."""
+    _, Y, X, Z, Cin, Cout = shape
+    p = K6.plan_bf16(1, Y, X, Z, Cin, Cout)
+    _check_plan(p, 1, Y, X, Z, Cin, Cout)
+    assert p.S > 1 or Z != 2
+    if (Y, Cin, Cout) == (100, 256, 256):
+        assert (p.BM, p.BN) == (128, 256)
+
+
+@pytest.mark.parametrize("sms", [K6.SMS, 1])
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 10, 6, 3, 64), 80),     # Z' = 4, ragged Cout in a 128-wide tile
+    ((2, 5, 12, 12, 128), 48),   # Z' = 16, ragged y edge, two K chunks
+])
+def test_k6_bf16_tiling_matches_pallas_conv3d(shape, cout, sms):
+    """The bf16 kernel's decomposition, emulated in f32 from the wrapper's
+    own plan -- boxes zero-filled outside the volume, the Z' rows, split-K
+    partials (with the card's 132 SMs these small volumes split; with 1 SM
+    they do not) and their sum -- against the TPU kernel in interpret
+    mode: 1e-4, f32 sums in another order."""
+    B, Y, X, Z, Cin = shape
+    p = K6.plan_bf16(B, Y, X, Z, Cin, cout, sms)
+    _check_plan(p, B, Y, X, Z, Cin, cout, sms)
+    assert (p.S > 1) == (sms == K6.SMS)
+    rng = np.random.RandomState(3)
+    x = rng.randn(*shape).astype(np.float32)
+    k = (rng.randn(3, 3, 3, Cin, cout) * 0.05).astype(np.float32)
+    want = np.asarray(jconv3d.conv3d_3x3x3(jnp.asarray(x), jnp.asarray(k),
+                                           interpret=True))
+    got = _emulate_k6_bf16_kernel(torch.from_numpy(x), torch.from_numpy(k),
+                                  p)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------- K8
 def test_upsample_int_axis_matches_jax():
     """The port's copy of ``_upsample_int_axis``: f32 to 1e-6; bf16 equal
