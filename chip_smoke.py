@@ -19,7 +19,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 6. Holds K7 (the 3x3 conv) against its plain version, forward and input
    gradient, at every shape the flagship train step gives it -- the
    image trunk's 2D convs and the z-slabs of the 3x3x3 convs -- in bf16
-   and (at three shapes) f32, and times kernel, plain version and cuDNN.
+   and (at three shapes) f32, and its bf16 weight gradient against the
+   f32 one; times kernel, plain version and cuDNN per call and from a
+   CUDA graph, the weight gradient three ways, and the host time per call.
 7. Trains the full-width flagship (bf16, K7 on, ResNet stages
    checkpointed, random weights from a seeded ``torch.Generator``) on a
    synthetic batch: 3 steps of fresh streams, then 3 continuing steps
@@ -46,12 +48,14 @@ Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ``python3 chip_smoke.py --profile`` instead builds the kernels and prints
 the flagship frame time and its per-stage and per-kernel device times, for
 the kernel-routed configuration and the default one, then the flagship
-train step's time and its device time by kernel.  ``--k6-plans`` times
-every tile plan of K6's bf16 kernel at its flagship shapes.
+train step's time and its device time by kernel.  ``--k6-plans`` and
+``--k7-plans`` time every tile plan of K6's and K7's bf16 kernels at
+their flagship shapes.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -635,26 +639,74 @@ def check_k9(dev):
                  plain_ms, bound(nbytes, f32_flops=blend_ops(128)), None)
 
 
+def host_us(fn, n=200):
+    """Host microseconds per call of ``fn``: ``n`` calls issued back to
+    back from an idle device, without waiting for them (the launch queue
+    holds them), then drained."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
+def wgrad_nine(x, g):
+    """K7's weight gradient as nine bf16 tensor-core products per conv, one
+    (Cin, Cout) product per tap of the zero-padded input's rows flattened
+    (tap (dy, dx) pairs padded output row r with input row r + (dy - 1) *
+    (W + 2) + dx - 1; the padded output gradient is zero off the image),
+    f32 results: the alternative to the port's one product over the
+    stacked windows, timed beside it."""
+    import torch
+    import torch.nn.functional as F
+    N, Cin, H, W = x.shape
+    xr, gr = (F.pad(t.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1)).reshape(
+        -1, t.shape[1]) for t in (x, g))
+    r0, r1 = W + 3, xr.shape[0] - (W + 3)
+    taps = [torch.mm(xr[r0 + o:r1 + o].t(), gr[r0:r1],
+                     out_dtype=torch.float32)
+            for o in ((dy - 1) * (W + 2) + dx - 1 for dy in range(3)
+                      for dx in range(3))]
+    return torch.stack(taps).reshape(3, 3, Cin, -1).permute(3, 2, 0, 1)
+
+
 def check_k7(dev):
     """K7 forward and input gradient at every shape of ``K7_SHAPES``, bf16
     (and f32 at three shapes), against the plain version; times of
-    kernel, plain version and cuDNN (``F.conv2d`` / ``conv2d_input``).
-    Returns the forward and dgrad entries, their times summed over the
-    launches of one pass.  Tolerance: bf16 2e-2 of max(1, |value|) --
-    both sum in f32 and round once to bf16, so a sum in another order may
-    move an output by one bf16 ulp (2^-7 relative); f32 1e-4 absolute on
-    O(1) outputs (f32 sums of 9*Cin products in another order).  The
-    entries carry the largest absolute bf16 error (``max_abs_err``,
-    against 2e-2 of max(1, max |value|)) and the largest relative one
-    (``max_rel_err``)."""
+    kernel, plain version and cuDNN (``F.conv2d`` / ``conv2d_input``), per
+    call (CUDA events around back-to-back calls, the host's launch cost
+    included: ``ms``, ``library_ms``) and replayed from a CUDA graph (the
+    device time: ``graph_ms``, ``library_graph_ms``), each shape's line
+    with the tile plan its bf16 kernel took.  Returns the forward and
+    dgrad entries, their times summed over the launches of one pass.
+    Tolerance: bf16 2e-2 of max(1, |value|) -- both sum in f32 and round
+    once to bf16, so a sum in another order may move an output by one bf16
+    ulp (2^-7 relative); f32 1e-4 absolute on O(1) outputs (f32 sums of
+    9*Cin products in another order).  The entries carry the largest
+    absolute bf16 error (``max_abs_err``, against 2e-2 of max(1, max
+    |value|)) and the largest relative one (``max_rel_err``).
+    Also, per shape: the weight gradient of the train step's backward --
+    the port's one stacked bf16 tensor-core product (f32 sums) against
+    the old nine f32 products (``_wgrad_f32``, the reference: within one
+    bf16 rounding once cast to w's bf16, 2^-7 of |value| plus 1e-5 of the
+    largest) and against nine bf16 products (``wgrad_nine``, timed only)
+    -- summed over the pass's convs into the dgrad entry's
+    ``wgrad_*_ms``; and the host time per call at 2x25x25 256->256, the
+    wrapper's and its parts'."""
     import torch
     import torch.nn.functional as F
     from fbbev_tpu_torch.ops import pallas_conv as K7
     g = torch.Generator().manual_seed(8)
-    tot = {k: 0.0 for k in ("ms", "plain", "lib", "dms", "dplain", "dlib",
-                            "bytes", "flops")}
+    keys = ("ms", "plain", "lib", "gms", "glib", "dms", "dplain", "dlib",
+            "dgms", "dglib", "wold", "wnew", "wnine", "bytes", "flops")
+    tot = {k: 0.0 for k in keys}
     err = {k: {"abs": 0.0, "tol": 0.0, "rel": 0.0}
            for k in ("fwd", "dgrad")}
+    sms = K7._sms(dev)
     for (N, H, W, ci, co), count in K7_SHAPES:
         for dt in ((torch.bfloat16, torch.float32)
                    if (H, ci) in ((64, 64), (16, 512), (25, 256)) else
@@ -692,38 +744,186 @@ def check_k7(dev):
                                          f"version: {e} > {tol}")
             if dt != torch.bfloat16:
                 continue
+            ref = K7._wgrad_f32(x, gy)
+            new = K7._wgrad(x, gy)
+            nine = wgrad_nine(x, gy)
+            dw = (new.to(dt).float() - ref).abs()
+            wtol = 2.0 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
+            ds = (nine - new).abs().max().item()
+            log(f"K7 wgrad N={N} {H}x{W} {ci}->{co}: bf16 product vs f32 "
+                f"max_abs_err {dw.max().item():.3e}, within one bf16 "
+                f"rounding: {bool((dw <= wtol).all())}; nine products vs "
+                f"stacked {ds:.3e}")
+            if not bool((dw <= wtol).all()):
+                raise AssertionError("K7 wgrad: bf16 product differs from "
+                                     "the f32 contractions")
+            del ref, new, nine
+            wl = w.contiguous(memory_format=cl)
             with torch.no_grad():
                 t = [cuda_time(lambda: K7.conv3x3_s1(x, w), iters=10),
                      cuda_time(lambda: K7.conv3x3_s1_plain(x, w), iters=5),
-                     cuda_time(lambda: F.conv2d(x, w, padding=1), iters=10),
+                     cuda_time(lambda: F.conv2d(x, wl, padding=1), iters=10),
+                     graph_time(lambda: K7.conv3x3_s1(x, w)),
+                     graph_time(lambda: F.conv2d(x, wl, padding=1)),
                      cuda_time(lambda: K7._dgrad(gy, w), iters=10),
                      cuda_time(lambda: K7.conv3x3_s1_plain(gy, wt), iters=5),
                      cuda_time(lambda: torch.nn.grad.conv2d_input(
-                         x.shape, w, gy, padding=1), iters=10)]
-            log(f"K7 N={N} {H}x{W} {ci}->{co} x{count}: fwd kernel "
-                f"{t[0]:.4f} plain {t[1]:.4f} cuDNN {t[2]:.4f} ms; dgrad "
-                f"kernel {t[3]:.4f} plain {t[4]:.4f} cuDNN {t[5]:.4f} ms")
-            for k, v in zip(("ms", "plain", "lib", "dms", "dplain", "dlib"),
-                            t):
+                         x.shape, w, gy, padding=1), iters=10),
+                     graph_time(lambda: K7._dgrad(gy, w)),
+                     graph_time(lambda: torch.nn.grad.conv2d_input(
+                         x.shape, w, gy, padding=1)),
+                     cuda_time(lambda: K7._wgrad_f32(x, gy).to(dt), iters=5),
+                     cuda_time(lambda: K7._wgrad(x, gy).to(dt), iters=10),
+                     cuda_time(lambda: wgrad_nine(x, gy).to(dt), iters=10)]
+            flops = 2.0 * N * H * W * 9 * ci * co
+            log(f"K7 N={N} {H}x{W} {ci}->{co} x{count}: fwd "
+                f"{K7.plan_bf16(N, H, W, ci, co, sms)} kernel {t[0]:.4f} "
+                f"(graph {t[3]:.4f}, {flops / t[3] / 1e9:.1f} TFLOP/s) plain "
+                f"{t[1]:.4f} cuDNN {t[2]:.4f} (graph {t[4]:.4f}) ms; dgrad "
+                f"{K7.plan_bf16(N, H, W, co, ci, sms)} kernel {t[5]:.4f} "
+                f"(graph {t[8]:.4f}) plain {t[6]:.4f} cuDNN {t[7]:.4f} "
+                f"(graph {t[9]:.4f}) ms; wgrad f32 {t[10]:.4f} bf16 stacked "
+                f"{t[11]:.4f} nine {t[12]:.4f} ms")
+            for k, v in zip(keys, t):
                 tot[k] += count * v
             tot["bytes"] += count * (x.numel() + gy.numel() + w.numel()) * 2
-            tot["flops"] += count * 2.0 * N * H * W * 9 * ci * co
+            tot["flops"] += count * flops
+            if (N, H, ci, co) == (2, 25, 256, 256):
+                xh = x.permute(0, 2, 3, 1)
+                y = torch.empty_like(xh)
+                p = K7.plan_bf16(N, H, W, ci, co, sms)
+                hus = [host_us(lambda: K7.conv3x3_s1(x, w)),
+                       host_us(lambda: K7._dgrad(gy, w)),
+                       host_us(lambda: F.conv2d(x, wl, padding=1)),
+                       host_us(lambda: K7._launch_bf16(xh, w, y, p, False)),
+                       host_us(lambda: torch.empty_like(xh))]
+                log(f"K7 host time per call at N={N} {H}x{W} {ci}->{co} "
+                    f"({p}): fwd {hus[0]:.1f} us, dgrad {hus[1]:.1f} us "
+                    f"(wrapper included); F.conv2d {hus[2]:.1f} us.  Parts "
+                    f"of the forward: the launch through ctypes (plan "
+                    f"given; workspace allocated, weight relayout, tensor "
+                    f"maps, conv, split-K sum) {hus[3]:.1f} us, one "
+                    f"torch.empty {hus[4]:.1f} us")
     b = bound(tot["bytes"], tc_flops=tot["flops"])
     n = sum(c for _, c in K7_SHAPES)
-    log(f"K7 over the {n} launches of one pass: fwd {tot['ms']:.4f} ms "
-        f"(cuDNN {tot['lib']:.4f}), dgrad {tot['dms']:.4f} ms (cuDNN "
-        f"{tot['dlib']:.4f}), bound {b[0]:.4f} ms each ({b[1]})")
+    log(f"K7 over the {n} launches of one pass: fwd {tot['ms']:.4f} ms per "
+        f"call, {tot['gms']:.4f} ms from a graph (cuDNN {tot['lib']:.4f} / "
+        f"{tot['glib']:.4f}); dgrad {tot['dms']:.4f} / {tot['dgms']:.4f} ms "
+        f"(cuDNN {tot['dlib']:.4f} / {tot['dglib']:.4f}); bound {b[0]:.4f} "
+        f"ms each ({b[1]}); wgrad per step: f32 {tot['wold']:.4f} ms, bf16 "
+        f"one stacked product {tot['wnew']:.4f} ms, nine products "
+        f"{tot['wnine']:.4f} ms")
     src = "fbbev_tpu_torch/csrc/conv3x3.cu"
     out = []
-    for name, kind, line, ms, plain, lib in (
-            ("conv3x3", "fwd", 67, "ms", "plain", "lib"),
-            ("conv3x3_dgrad", "dgrad", 145, "dms", "dplain", "dlib")):
+    for name, kind, line, pre in (("conv3x3", "fwd", 67, ""),
+                                  ("conv3x3_dgrad", "dgrad", 145, "d")):
         e = err[kind]
         out.append(entry(name, src, f"fbbev_tpu/ops/pallas_conv.py:{line}",
-                         e["abs"], e["tol"], tot[ms], tot[plain], b,
-                         tot[lib]))
-        out[-1]["max_rel_err"] = e["rel"]
+                         e["abs"], e["tol"], tot[pre + "ms"],
+                         tot[pre + "plain"], b, tot[pre + "lib"]))
+        out[-1].update(max_rel_err=e["rel"], graph_ms=tot[pre + "gms"],
+                       library_graph_ms=tot[pre + "glib"])
+    out[1].update(wgrad_f32_ms=tot["wold"], wgrad_bf16_ms=tot["wnew"],
+                  wgrad_nine_ms=tot["wnine"])
     return out
+
+
+def k7_plans(dev):
+    """``--k7-plans``: at each distinct K7 shape, forward and input
+    gradient, every legal tile plan of the bf16 kernel
+    (``pallas_conv.plans_bf16``) checked against the plain version (2e-2
+    of max(1, |y|)) and timed from a CUDA graph, all listed fastest first
+    with the model's rank (the data ``plan_bf16``'s step times were fitted
+    to), and the plan it picks."""
+    import torch
+    from fbbev_tpu_torch.ops import _cuda
+    from fbbev_tpu_torch.ops import pallas_conv as K7
+    g = torch.Generator().manual_seed(8)
+    sms = K7._sms(dev)
+    total = {"picked": 0.0, "fastest": 0.0}
+    sweep = []  # (count, N, H, W, Cin, Cout, {plan: seconds})
+    for (N, H, W, ci, co), count in K7_SHAPES:
+        w = (torch.randn(co, ci, 3, 3, generator=g) * 0.5
+             / (9 * ci) ** 0.5).to(dev, torch.bfloat16)
+        for dgrad, a, b in ((False, ci, co), (True, co, ci)):
+            xh = torch.randn(N, H, W, a, generator=g).to(dev, torch.bfloat16)
+            conv_w = w.flip(2, 3).transpose(0, 1) if dgrad else w
+            want = K7.conv3x3_s1_plain(xh.permute(0, 3, 1, 2),
+                                       conv_w).permute(0, 2, 3, 1).float()
+            y = torch.empty(N, H, W, b, dtype=torch.bfloat16, device=dev)
+            ranked = sorted(K7.plans_bf16(N, H, W, a, b, sms))
+            rows = []
+            for rank, (_, p) in enumerate(ranked):
+                _cuda.check(K7._launch_bf16(xh, w, y, p, dgrad), "conv3x3")
+                torch.cuda.synchronize()
+                e = ((y.float() - want).abs() / want.abs().clamp(min=1.0)
+                     ).max().item()
+                if not e <= 2e-2:
+                    raise AssertionError(f"K7 plan {p} differs: {e}")
+                rows.append((graph_time(lambda: K7._launch_bf16(
+                    xh, w, y, p, dgrad)), rank, p))
+            rows.sort()
+            picked = next(r[0] for r in rows if r[1] == 0)
+            total["picked"] += count * picked
+            total["fastest"] += count * rows[0][0]
+            flops = 2.0 * N * H * W * 9 * a * b
+            log(f"K7 plans {'dgrad' if dgrad else 'fwd'} N={N} {H}x{W} "
+                f"{a}->{b} x{count}: {len(rows)} plans; picked {ranked[0][1]}"
+                f" {picked:.4f} ms, fastest {rows[0][0]:.4f} ms "
+                f"({flops / rows[0][0] / 1e9:.1f} TFLOP/s)")
+            for t, rank, p in rows:
+                log(f"  {t:.4f} ms  model rank {rank:3d}  {p}")
+            sweep.append((count, N, H, W, a, b,
+                          {p: 1e-3 * t for t, _, p in rows}))
+    log(f"K7 plans over one pass, forward + dgrad: picked "
+        f"{total['picked']:.4f} ms, fastest {total['fastest']:.4f} ms "
+        f"(graph times)")
+    fit_k7_model(sweep, sms)
+
+
+def fit_k7_model(sweep, sms):
+    """Least-squares fit of ``pallas_conv.modelled_time``'s constants --
+    the step time of each (BM, BN) tile, the wave and split times -- to
+    every plan's time in ``sweep`` (rows weighted by 1 / time, so relative
+    errors count), printed as code; then the pass as the fitted model would
+    pick it, timed by the sweep (in-sample)."""
+    from fbbev_tpu_torch.ops import pallas_conv as K7
+    from fbbev_tpu_torch.ops import pallas_conv3d as K6
+    tiles = sorted(K7.STEP_S)
+    rows, rhs = [], []
+    for _, N, H, W, a, b, times in sweep:
+        steps, out = K7.k_steps(a), N * H * W * b
+        for p, t in times.items():
+            slots = min(2, K6.SMEM_PER_SM // K6.smem_bytes(p.BM, p.BN))
+            waves = -(-N * p.tiles_y * p.tiles_x * p.tiles_n * p.S
+                      // (sms * slots))
+            r = [0.0] * (len(tiles) + 2)
+            r[tiles.index((p.BM, p.BN))] = waves * (steps // p.S)
+            r[-2] = waves
+            r[-1] = float(p.S > 1)
+            split_bytes = (8 * p.S + 2) * out / K6.HBM_BPS if p.S > 1 else 0
+            rows.append([v / t for v in r])
+            rhs.append((t - split_bytes) / t)
+    coef = np.linalg.lstsq(np.array(rows), np.array(rhs), rcond=None)[0]
+    step_s = {tile: float(c) for tile, c in zip(tiles, coef)}
+    wave_s, split_s = float(coef[-2]), float(coef[-1])
+    rel = np.abs(np.array(rows) @ coef - np.array(rhs))
+    log(f"K7 plan model fitted to {len(rhs)} plan times (relative error "
+        f"median {np.median(rel):.3f}, max {rel.max():.3f}):")
+    log("  STEP_S = {" + ", ".join(f"{t}: {v:.4e}" for t, v in
+                                   step_s.items()) + "}")
+    log(f"  WAVE_S = {wave_s:.4e}")
+    log(f"  SPLIT_S = {split_s:.4e}")
+    picked = 0.0
+    for count, N, H, W, a, b, times in sweep:
+        best = min((round(K7.modelled_time(
+            N * p.tiles_y * p.tiles_x * p.tiles_n, K7.k_steps(a), p.BM, p.BN,
+            p.S, N * H * W * b, sms, step_s, wave_s, split_s) * 1e8),
+            p.tiles_y * p.TY * p.tiles_x * p.TX, -p.BM, p.S, p)
+            for p in times)[-1]
+        picked += count * 1e3 * times[best]
+    log(f"K7 plans over one pass, forward + dgrad, as the fitted model "
+        f"picks them: {picked:.4f} ms (graph times, in-sample)")
 
 
 def train_batch(dev, g, model, cam, start, step):
@@ -1086,9 +1286,10 @@ def profile_train(dev, steps=3):
     """The flagship train step (bf16, checkpointed stages) with K7 and with
     cuDNN for the same convolutions (``pallas3x3`` on / off, the same
     weights), timed in turns (cuDNN, K7, K7, cuDNN; CUDA events, mean of
-    ``steps`` after two warm-up steps), then the K7 step under
+    ``steps`` after two warm-up steps), then each step under
     ``torch.profiler``: kernel time per step, device idle share, the top
-    kernels and K7's share (``--profile``)."""
+    kernels (and K7's share) and the host ops that take the most CPU time
+    themselves (``--profile``)."""
     import torch
     from torch.profiler import ProfilerActivity
     from fbbev_tpu_torch.models import FBOCC
@@ -1116,27 +1317,77 @@ def profile_train(dev, steps=3):
         times[k7].append(cuda_time(lambda: step(k7), iters=steps, warmup=2))
         log(f"flagship train step, {'K7' if k7 else 'cuDNN'} convs: "
             f"{times[k7][-1]:.3f} ms (CUDA events, mean of {steps})")
-    del runs[False]
-    ms = float(np.mean(times[True]))
-    with torch.profiler.profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(True)
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    dkey = ("device_time_total" if hasattr(ev[0], "device_time_total")
-            else "cuda_time_total")
-    dt = (lambda e: getattr(e, dkey) / 1e3 / steps)
     cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in ev if e.device_type == cuda]
-    total = sum(dt(e) for e in kern)
-    k7 = sum(dt(e) for e in kern if "conv3x3_" in e.key)
-    log(f"flagship train step with K7 {ms:.3f} ms (mean of the two "
-        f"turns); kernel time {total:.3f} ms: device idle share "
-        f"{max(0.0, 1 - total / ms):.3f}; K7 {k7:.3f} ms")
-    for e in sorted(kern, key=dt, reverse=True)[:20]:
-        log(f"  train kernel {dt(e):8.3f} ms x{e.count // steps:<4d} "
-            f"{e.key[:90]}")
+    for k7 in (True, False):
+        ms = float(np.mean(times[k7]))
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step(k7)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        dkey = ("device_time_total" if hasattr(ev[0], "device_time_total")
+                else "cuda_time_total")
+        dt = (lambda e: getattr(e, dkey) / 1e3 / steps)
+        kern = [e for e in ev if e.device_type == cuda]
+        total = sum(dt(e) for e in kern)
+        ours = sum(dt(e) for e in kern if "conv3x3_" in e.key
+                   or "split_sum" in e.key)
+        label = "K7" if k7 else "cuDNN"
+        log(f"flagship train step with {label} convs {ms:.3f} ms (mean of "
+            f"the two turns); kernel time {total:.3f} ms: device idle share "
+            f"{max(0.0, 1 - total / ms):.3f}"
+            + (f"; K7 {ours:.3f} ms" if k7 else ""))
+        for e in sorted(kern, key=dt, reverse=True)[:20 if k7 else 8]:
+            log(f"  train kernel {dt(e):8.3f} ms x{e.count // steps:<4d} "
+                f"{e.key[:90]}")
+        # host: the ops that spend the most CPU time themselves
+        host = sorted((e for e in ev if e.device_type != cuda),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+        for e in host[:12]:
+            log(f"  {label} host op {e.self_cpu_time_total / 1e3 / steps:8.3f}"
+                f" ms self x{e.count // steps:<5d} {e.key[:70]}")
+
+
+def kernel_name(mangled):
+    """A readable name of a kernel from its mangled one: the last name of
+    its nested name with its integer template arguments
+    (``conv3x3_wgmma<2,256>``); others as they are."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    i, name = m.end(), None
+    while True:  # the length-prefixed components of the nested name
+        m = re.match(r"(\d+)", mangled[i:])
+        if not m:
+            break
+        j = i + m.end()
+        name, i = mangled[j:j + int(m.group(1))], j + int(m.group(1))
+    if name is None:
+        return mangled
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_summary(log_text):
+    """Registers and spills of each kernel from an ``nvcc -Xptxas -v``
+    log: ``name regs R spill S/L`` (S bytes of spill stores, L of spill
+    loads)."""
+    out, name, spill = [], None, "?"
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = kernel_name(m.group(1)), "?"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name} regs {m.group(1)} spill {spill}")
+    return " | ".join(out)
 
 
 def main():
@@ -1159,14 +1410,16 @@ def main():
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for so in libs.values():
         with open(so + ".log") as f:
-            ptx = [ln.strip() for ln in f if "registers" in ln]
-        log(f"  {os.path.basename(so)}: {' | '.join(ptx)}")
+            log(f"  {os.path.basename(so)}: {ptxas_summary(f.read())}")
     if "--profile" in sys.argv[1:]:
         profile(dev)
         profile_train(dev)
         return 0
     if "--k6-plans" in sys.argv[1:]:
         k6_plans(dev)
+        return 0
+    if "--k7-plans" in sys.argv[1:]:
+        k7_plans(dev)
         return 0
 
     # the JSON line lists each kernel once, at its main-path shapes; the

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
 go to ``build/kernels/<hash>/`` at the repository root, keyed by a hash of
-the sources and flags, so a fresh checkout builds them at first use and an
-edited source rebuilds.  Nothing here runs at import time.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so a fresh
+checkout builds them at first use and an edited source or header
+rebuilds.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, object] = {}
+_sm_counts: Dict[object, int] = {}
 
 
 def _nvcc() -> str:
@@ -37,9 +40,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
+    """The library path of kernel ``name``, keyed by the flags, its source
+    and every header under ``csrc/`` (an edited header rebuilds too)."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD, h.hexdigest()[:16], f"lib{name}.so")
 
 
@@ -76,6 +83,28 @@ def lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(build([name])[name])
     return _libs[name]
+
+
+def entry(name: str, fn: str, pointers: int, ints: int):
+    """Library ``name``'s C entry ``fn`` taking ``pointers`` pointers,
+    ``ints`` ints and a stream, its argument types set once."""
+    key = (name, fn)
+    if key not in _entries:
+        f = getattr(lib(name), fn)
+        f.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + \
+            [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _entries[key] = f
+    return _entries[key]
+
+
+def sm_count(dev) -> int:
+    """The streaming multiprocessors of card ``dev`` (cached)."""
+    if dev not in _sm_counts:
+        import torch
+        _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_counts[dev]
 
 
 def check(status: int, name: str) -> None:

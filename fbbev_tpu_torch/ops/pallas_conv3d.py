@@ -40,7 +40,6 @@ kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Sequence
 
@@ -88,7 +87,7 @@ TC_PER_SM = 989e12 / SMS        # bf16 tensor-core FLOP/s per SM
 L2_PER_SM = 80e9                # L2 -> shared memory bytes/s of one SM
 HBM_BPS = 3.35e12
 SMEM_PER_SM = 232448            # shared memory the blocks of an SM use
-STAGES = 4                      # conv3d.cu kStages
+STAGES = 4                      # tma_wgmma.cuh kStages
 
 
 class Plan(NamedTuple):
@@ -108,9 +107,45 @@ class Plan(NamedTuple):
 
 
 def smem_bytes(BM: int, BN: int) -> int:
-    """conv3d.cu ``smem_bytes``: the ring, 1024 bytes of alignment slack,
-    the barriers."""
+    """``Ring<BM / 64, BN>::kSmem`` of ``csrc/tma_wgmma.cuh``: the ring,
+    1024 bytes of alignment slack, the barriers."""
     return STAGES * (BM + BN) * 128 + 1024 + 2 * STAGES * 8
+
+
+def _step_s(BM: int, BN: int) -> float:
+    """K6's K step time for the blocks of a BM x BN tile resident on an SM:
+    the longer of their products on the SM's tensor cores and their A and
+    B tiles from L2 at ~80 GB/s per SM."""
+    slots = min(2, SMEM_PER_SM // smem_bytes(BM, BN))
+    return slots * max(BM * BN * 128 / TC_PER_SM,
+                       (BM + BN) * 128 / L2_PER_SM)
+
+
+# K6's constants of :func:`modelled_time` (K7's are its own, fitted)
+STEP_S = {(bm, bn): _step_s(bm, bn) for bm in (64, 128)
+          for bn in (64, 128, 256) if bn < 256 or bm == 128}
+WAVE_S = 2.5e-6
+SPLIT_S = 3e-6
+
+
+def modelled_time(blocks: int, steps: int, BM: int, BN: int, S: int,
+                  out_elems: int, sms: int = SMS, step_s=None,
+                  wave_s: float = WAVE_S, split_s: float = SPLIT_S) -> float:
+    """Seconds the TMA / ``wgmma`` implicit GEMM of ``tma_wgmma.cuh`` (K6,
+    K7) is modelled to take for ``blocks`` BM x BN output tiles of
+    ``steps`` K steps (64 channels of one tap), split S ways, with
+    ``out_elems`` outputs: waves of blocks (as many resident per SM as
+    shared memory holds, at most two) times a block's K steps at
+    ``step_s[BM, BN]`` (K6's :data:`STEP_S` by default) plus a wave's
+    fixed ``wave_s`` (pipeline fill, epilogue); a split adds its f32
+    partials through HBM (written, then read by the second pass, which
+    writes bf16) and ``split_s``."""
+    slots = min(2, SMEM_PER_SM // smem_bytes(BM, BN))
+    waves = -(-blocks * S // (sms * slots))
+    t = waves * (steps // S * (step_s or STEP_S)[BM, BN] + wave_s)
+    if S > 1:
+        t += (8 * S + 2) * out_elems / HBM_BPS + split_s
+    return t
 
 
 def plans_bf16(B: int, Y: int, X: int, Z: int, Cin: int, Cout: int,
@@ -129,9 +164,6 @@ def plans_bf16(B: int, Y: int, X: int, Z: int, Cin: int, Cout: int,
             if BN == 256 and BM != 128:
                 continue
             tn = -(-Cout // BN)
-            slots = min(2, SMEM_PER_SM // smem_bytes(BM, BN))
-            step = slots * max(BM * BN * 128 / TC_PER_SM,
-                               (BM + BN) * 128 / L2_PER_SM)
             area = BM // Zp
             ty = 1
             while ty <= area:
@@ -139,11 +171,8 @@ def plans_bf16(B: int, Y: int, X: int, Z: int, Cin: int, Cout: int,
                 tyn, txn = -(-Y // ty), -(-X // tx)
                 blocks = B * tyn * txn * tn
                 for S in (1, 3, 9):
-                    waves = -(-blocks * S // (sms * slots))
-                    t = waves * (27 * (Cin // 64) // S * step + 2.5e-6)
-                    if S > 1:
-                        t += (8 * S + 2) * B * Y * X * Z * Cout / HBM_BPS \
-                            + 3e-6
+                    t = modelled_time(blocks, 27 * (Cin // 64), BM, BN, S,
+                                      B * Y * X * Z * Cout, sms)
                     key = (round(t * 1e8), tyn * ty * txn * tx, -BM, S)
                     out.append((key, Plan(Zp, ty, tx, BM, BN, S, tyn, txn,
                                           tn)))
@@ -158,41 +187,17 @@ def plan_bf16(B: int, Y: int, X: int, Z: int, Cin: int, Cout: int,
     card of ``sms`` SMs.  Zp = Z rounded up to a power of two; BN = 64 for
     Cout <= 64, 128 for Cout <= 128, else 128 or 256 (with BM 128).  Over
     BM in (128, 64), BN, box edges TY, TX (powers of two, TY * TX * Zp =
-    BM) and splits S in (1, 3, 9), the least modelled time: waves of
-    blocks (as many resident per SM as shared memory holds, at most two,
-    sharing it) times a block's K steps plus a fixed ~2.5 us of pipeline
-    fill and epilogue, a K step taking the longer of its products on the
-    SM's tensor cores and its A and B tiles from L2 at ~80 GB/s per SM
-    (the rate that fits the kernel's times at the flagship shapes on an
+    BM) and splits S in (1, 3, 9), the least :func:`modelled_time` (its L2
+    rate the one that fits the kernel's times at the flagship shapes on an
     H100 SXM, ``chip_smoke.py --k6-plans``: a step of 128 x 128 tiles
-    takes ~0.41 us, of 128 x 256 ~0.67 us); a split adds its f32 partials
-    through HBM and a second launch.
+    takes ~0.41 us, of 128 x 256 ~0.67 us).
     Ties go to the smaller padded volume, the larger BM, the smaller S.
     Wide tiles win: at 50x50x4 a 91-block grid of 128 x 256 tiles beats
     every grid that fills the 132 SMs, while the 25x25x2 volumes split."""
     return min(plans_bf16(B, Y, X, Z, Cin, Cout, sms))[1]
 
 
-_sms_of = {}
-_fns = {}
-
-
-def _sms(dev: torch.device) -> int:
-    if dev not in _sms_of:
-        _sms_of[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _sms_of[dev]
-
-
-def _fn(name: str, pointers: int, ints: int):
-    """The library's entry ``name`` with its argument types set (once)."""
-    if name not in _fns:
-        fn = getattr(_cuda.lib("conv3d"), name)
-        fn.argtypes = [ctypes.c_void_p] * pointers + \
-            [ctypes.c_int] * ints + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+_sms = _cuda.sm_count
 
 
 def _launch_bf16(xh: torch.Tensor, wk: torch.Tensor, y: torch.Tensor,
@@ -204,7 +209,7 @@ def _launch_bf16(xh: torch.Tensor, wk: torch.Tensor, y: torch.Tensor,
     Cout = y.shape[-1]
     ws = (torch.empty(p.S, B, Y, X, Z, Cout, dtype=torch.float32,
                       device=xh.device) if p.S > 1 else None)
-    return _fn("fbbev_conv3d_bf16", 4, 12)(
+    return _cuda.entry("conv3d", "fbbev_conv3d_bf16", 4, 12)(
         xh.data_ptr(), wk.data_ptr(), y.data_ptr(),
         None if ws is None else ws.data_ptr(), B, Y, X, Z, Cin, Cout, p.Zp,
         p.TY, p.TX, p.BM, p.BN, p.S, _cuda.stream_ptr(xh))
@@ -252,7 +257,7 @@ def conv3d_3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                                    _sms(x.device)))
     else:
         wk = w.permute(2, 3, 4, 1, 0).contiguous()
-        status = _fn("fbbev_conv3d_f32", 3, 6)(
+        status = _cuda.entry("conv3d", "fbbev_conv3d_f32", 3, 6)(
             xh.data_ptr(), wk.data_ptr(), y.data_ptr(), B, Y, X, Z, Cin,
             Cout, _cuda.stream_ptr(x))
     _cuda.check(status, "conv3d")

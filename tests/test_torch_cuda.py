@@ -97,9 +97,13 @@ def test_k1_kernel_matches_plain(dev, epilogue):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7_kernel_matches_plain(dev, dtype):
     """Forward, and input and weight gradients through ``Conv3x3``, on a
-    ragged tile (H, W not multiples of the 8 x 16 tile; Cout 80 not a
-    multiple of 64).  f32: 1e-4; bf16: 2e-2 of max(1, |value|), one bf16
-    rounding of f32 sums taken in another order."""
+    ragged tile (H, W not multiples of a box; Cout 80 not a multiple of
+    the N tile, and as the input gradient's Cin a 64-channel box
+    zero-filled past 80).  f32: 1e-4; bf16: 2e-2 of max(1, |value|), one
+    bf16 rounding of f32 sums taken in another order.  The weight
+    gradient against the f32 contractions (``_wgrad_f32``): f32 1e-4; bf16
+    (tensor-core products, f32 sums, cast to w's bf16) within one bf16
+    rounding, 2^-7 of |value| plus 1e-5 of the largest."""
     g = torch.Generator(device="cpu").manual_seed(2)
     x = torch.randn(2, 64, 13, 21, generator=g).to(dev, dtype)
     w = (torch.randn(80, 64, 3, 3, generator=g) / 24).to(dev, dtype)
@@ -117,7 +121,85 @@ def test_k7_kernel_matches_plain(dev, dtype):
     assert (K7.launches, K7.dgrad_launches) == (f0 + 1, d0 + 1)
     assert close(y, K7.conv3x3_s1_plain(x, w))
     assert close(gx, K7.conv3x3_s1_plain(gy, w.flip(2, 3).transpose(0, 1)))
-    assert close(gw, K7._wgrad(x, gy))
+    ref = K7._wgrad_f32(x, gy)
+    if dtype == torch.float32:
+        assert close(gw, ref)
+    else:
+        assert gw.dtype == torch.bfloat16
+        d = (gw.float() - ref).abs()
+        assert (d <= 2.0 ** -7 * ref.abs() + 1e-5 * ref.abs().max()).all()
+
+
+# K7's shapes in the flagship train step (N, H, W, Cin, Cout), as
+# ``chip_smoke.py::K7_SHAPES``, and the ragged Cout-80 case
+K7_PLAN_SHAPES = [(6, 64, 176, 64, 64), (6, 32, 88, 128, 128),
+                  (6, 16, 44, 256, 256), (6, 8, 22, 512, 512),
+                  (6, 16, 44, 256, 512), (6, 16, 44, 512, 512),
+                  (8, 100, 100, 64, 64), (4, 50, 50, 128, 128),
+                  (2, 25, 25, 256, 256), (8, 100, 100, 256, 256),
+                  (4, 50, 50, 256, 256), (8, 100, 100, 256, 128),
+                  (4, 50, 50, 256, 128), (2, 25, 25, 256, 128),
+                  (2, 13, 21, 64, 80)]
+
+
+@pytest.mark.parametrize("shape", K7_PLAN_SHAPES)
+def test_k7_every_bf16_plan_matches_plain(dev, shape):
+    """Every tile plan ``plans_bf16`` offers (BM 64 / 128, each BN, every
+    box -- exact fits of fewer pixels than BM among them -- and split),
+    launched directly on NaN-filled outputs, forward (Cin
+    -> Cout) and input gradient (Cout -> Cin, on w relaid out with its
+    channels swapped and taps flipped), vs the plain version: 2e-2 of
+    max(1, |y|), as ``test_k7_kernel_matches_plain``."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    N, H, W, Cin, Cout = shape
+    w = (torch.randn(Cout, Cin, 3, 3, generator=g) * 0.5
+         / (9 * Cin) ** 0.5).to(dev, torch.bfloat16)
+    for dgrad, ci, co in ((False, Cin, Cout), (True, Cout, Cin)):
+        xh = torch.randn(N, H, W, ci, generator=g).to(dev, torch.bfloat16)
+        conv_w = w.flip(2, 3).transpose(0, 1) if dgrad else w
+        want = K7.conv3x3_s1_plain(xh.permute(0, 3, 1, 2), conv_w).permute(
+            0, 2, 3, 1).float()
+        plans = [p for _, p in K7.plans_bf16(N, H, W, ci, co)]
+        for p in plans:
+            y = torch.full((N, H, W, co), float("nan"), device=dev,
+                           dtype=torch.bfloat16)
+            assert K7._launch_bf16(xh, w, y, p, dgrad) == 0
+            d = (y.float() - want).abs() / want.abs().clamp(min=1.0)
+            assert d.max().item() <= 2e-2, (dgrad, p)
+
+
+def test_k7_bf16_takes_strided_weights(dev):
+    """A z-slab's weights are a strided view ``w5[..., dz]`` of the 3x3x3
+    kernel; the relayout reads them from their strides: forward and input
+    gradient vs the plain version, 2e-2 of max(1, |y|)."""
+    g = torch.Generator(device="cpu").manual_seed(10)
+    w5 = (torch.randn(80, 64, 3, 3, 3, generator=g) / 24).to(
+        dev, torch.bfloat16)
+    x = torch.randn(3, 64, 9, 17, generator=g).to(dev, torch.bfloat16)
+    gy = torch.randn(3, 80, 9, 17, generator=g).to(dev, torch.bfloat16)
+    for dz in range(3):
+        w = w5[..., dz]
+        assert not w.is_contiguous()
+        for got, want in (
+                (K7.conv3x3_s1(x, w), K7.conv3x3_s1_plain(x, w)),
+                (K7._dgrad(gy, w), K7.conv3x3_s1_plain(
+                    gy, w.flip(2, 3).transpose(0, 1)))):
+            d = (got.float() - want.float()).abs()
+            assert (d / want.float().abs().clamp(min=1.0)).max() <= 2e-2
+
+
+def test_k7_bf16_refuses_a_misaligned_input(dev):
+    """TMA reads 16-byte aligned tensors: a bf16 channels-last view 2 bytes
+    into its storage raises instead of launching (and the f32 kernel's
+    wrapper takes an aligned copy of the same data)."""
+    base = torch.zeros(1 * 8 * 16 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    x = base[1:].view(1, 8, 16, 64).permute(0, 3, 1, 2)
+    w = torch.zeros(64, 64, 3, 3, device=dev, dtype=torch.bfloat16)
+    before = K7.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K7.conv3x3_s1(x, w)
+    assert K7.launches == before
+    assert K7.conv3x3_s1(x.clone(), w).abs().max().item() == 0.0
 
 
 def test_k7_zslab_matches_conv3d(dev):
