@@ -48,9 +48,11 @@ Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ``python3 chip_smoke.py --profile`` instead builds the kernels and prints
 the flagship frame time and its per-stage and per-kernel device times, for
 the kernel-routed configuration and the default one, then the flagship
-train step's time and its device time by kernel.  ``--k6-plans`` and
-``--k7-plans`` time every tile plan of K6's and K7's bf16 kernels at
-their flagship shapes.
+train step's time and its device time by kernel; ``--profile-default``
+the default configuration alone.  ``--k6-plans`` and ``--k7-plans`` time
+every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
+``--k1`` builds the kernels, holds K1 (both variants) and K5 against
+their plain versions at the flagship, times them and exits.
 """
 
 import json
@@ -265,9 +267,13 @@ def check_k3(dev, name, B, HW, hw, Q, P):
 
 def check_k1(dev, epilogue=True):
     """K1 at the flagship: hist (1,8,100,100,1280) bf16, curr
-    (1,100,100,8,80) bf16, epilogue to F=160."""
+    (1,100,100,8,80) bf16, epilogue to F=160.  Times per call (CUDA events
+    around back-to-back calls, the wrapper's host time included) and
+    replayed from a CUDA graph (``graph_ms``); with the epilogue the
+    kernel's plan and its registers from ``-Xptxas -v``."""
     import torch
     from fbbev_tpu_torch import geometry
+    from fbbev_tpu_torch.ops import _cuda
     from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
     rng = np.random.RandomState(4)
     B, Z, Y, X, C, T, F = 1, 8, 100, 100, 80, 16, 160
@@ -289,6 +295,12 @@ def check_k1(dev, epilogue=True):
                    tvec=t(rng.rand(B, T) * 8.0),
                    ws=t(rng.randn(B, T * C, F) / np.sqrt(T * C),
                         torch.bfloat16))
+        plan = K1.plan_epilogue(B, Z, Y, X, C, F)
+        with open(_cuda.build(["fuse_warp"])["fuse_warp"] + ".log") as f:
+            regs = [r for r in ptxas_summary(f.read()).split(" | ")
+                    if r.startswith("fuse_warp_epi")]
+        log(f"K1 epilogue kernel: plan {plan._asdict()}; ptxas: "
+            f"{' | '.join(regs)}")
     got, gh = K1.fuse_warp(hist, curr, mat, start, hsel, epilogue=epi)
     want, wh = K1.fuse_warp_plain(hist, curr, mat, start, hsel,
                                   epilogue=epi)
@@ -301,8 +313,9 @@ def check_k1(dev, epilogue=True):
     if hd.max().item() > 2.0 ** -7 * wh.float().abs().max().item():
         raise AssertionError("K1 new history differs from the plain version")
     err = (got.float() - want.float()).abs().max().item()
-    ms = cuda_time(lambda: K1.fuse_warp(hist, curr, mat, start, hsel,
-                                        epilogue=epi), iters=10)
+    call = (lambda: K1.fuse_warp(hist, curr, mat, start, hsel, epilogue=epi))
+    ms = cuda_time(call, iters=10)
+    gms = graph_time(call)
     plain_ms = cuda_time(lambda: K1.fuse_warp_plain(
         hist, curr, mat, start, hsel, epilogue=epi), iters=3, warmup=1)
     V = B * Z * Y * X
@@ -313,15 +326,19 @@ def check_k1(dev, epilogue=True):
     if epilogue:
         nbytes += (epi["ws"].numel()) * 2 + C * C * 2
         tc = 2.0 * V * T * C * (C + F)
+    log(f"K1 {'with' if epilogue else 'without'} the epilogue: {ms:.4f} ms "
+        f"per call, {gms:.4f} ms from a graph")
     # epilogue: f32 sums in another order can move y1 across a bf16
     # rounding boundary (1 ulp = 2^-8 relative) before the 1280-row
     # product; without it the slots are the bf16 warp (one ulp allowed)
     tol = 2e-2 if epilogue else 2.0 ** -7 * want.float().abs().max().item()
-    return entry("fuse_warp" if epilogue else "fuse_warp_noepi",
-                 "fbbev_tpu_torch/csrc/fuse_warp.cu",
-                 "fbbev_tpu/ops/pallas_fuse_warp.py:280", err, tol, ms,
-                 plain_ms,
-                 bound(nbytes, f32_flops=warp_flops, tc_flops=tc), None)
+    out = entry("fuse_warp" if epilogue else "fuse_warp_noepi",
+                "fbbev_tpu_torch/csrc/fuse_warp.cu",
+                "fbbev_tpu/ops/pallas_fuse_warp.py:280", err, tol, ms,
+                plain_ms,
+                bound(nbytes, f32_flops=warp_flops, tc_flops=tc), None)
+    out.update(graph_ms=gms)
+    return out
 
 
 def check_k10(dev):
@@ -1230,6 +1247,34 @@ def profile_frames(pipe, imgs, frames, ours, label):
             f"{e.key[:80]}")
 
 
+# name fragments of the port's own kernels in a profile
+PORT_KERNELS = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
+                "fuse_warp_epi", "conv3d_", "split_sum", "occ_tail_kernel")
+
+
+def profile_images(dev):
+    """Three flagship 6-camera frames of seeded noise on the card."""
+    import torch
+    g = torch.Generator().manual_seed(1)
+    return [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
+            for _ in range(3)]
+
+
+def profile_default(dev, frames=5):
+    """``--profile-default``: the default configuration alone, as
+    :func:`profile` times and profiles it (cuDNN's autotuner off)."""
+    import torch
+    from fbbev_tpu_torch.models import FBOCC
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    imgs = profile_images(dev)
+    model = FBOCC(dtype=torch.bfloat16, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    pipe = FixedRigPipeline(model, flagship_rig())
+    pipe(imgs[0], True)
+    profile_frames(pipe, imgs, frames, PORT_KERNELS,
+                   "default {} cudnn.benchmark=False")
+
+
 def profile(dev, frames=5):
     """Flagship frame time and its device time by stage and by kernel
     (``--profile``), for the default configuration and the kernel-routed
@@ -1239,11 +1284,7 @@ def profile(dev, frames=5):
     import torch
     from fbbev_tpu_torch.models import FBOCC
     from fbbev_tpu_torch.serving import FixedRigPipeline
-    ours = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
-            "conv3d_", "split_sum", "occ_tail_kernel")
-    g = torch.Generator().manual_seed(1)
-    imgs = [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
-            for _ in range(3)]
+    imgs = profile_images(dev)
     for label, routes, benches in (("routed", ROUTED, (False,)),
                                    ("default", {}, (False, True))):
         model = FBOCC(dtype=torch.bfloat16, device=dev,
@@ -1252,7 +1293,7 @@ def profile(dev, frames=5):
         pipe(imgs[0], True)
         for bench in benches:
             torch.backends.cudnn.benchmark = bench
-            profile_frames(pipe, imgs, frames, ours,
+            profile_frames(pipe, imgs, frames, PORT_KERNELS,
                            f"{label} {routes} cudnn.benchmark={bench}")
         if label == "routed":
             del pipe, model
@@ -1410,10 +1451,25 @@ def main():
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for so in libs.values():
         with open(so + ".log") as f:
-            log(f"  {os.path.basename(so)}: {ptxas_summary(f.read())}")
+            text = f.read()
+        log(f"  {os.path.basename(so)}: {ptxas_summary(text)}")
+        for ln in text.splitlines():
+            if "warning" in ln.lower():
+                log(f"  {os.path.basename(so)}: {ln.strip()}")
     if "--profile" in sys.argv[1:]:
         profile(dev)
         profile_train(dev)
+        return 0
+    if "--profile-default" in sys.argv[1:]:
+        profile_default(dev)
+        return 0
+    if "--k1" in sys.argv[1:]:
+        # K1 alone, for iterating on it: both variants and K5, which
+        # shares the no-epilogue kernel
+        check_k1(dev, epilogue=True)
+        check_k1(dev, epilogue=False)
+        check_k5(dev)
+        log(f"chip_smoke --k1: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--k6-plans" in sys.argv[1:]:
         k6_plans(dev)

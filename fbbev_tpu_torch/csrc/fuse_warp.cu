@@ -14,8 +14,7 @@
 // and without the epilogue the warped slots are written; with it, per slot
 //   y1   = relu(bf16(warped_t) @ kc + tvec_t * ke + kb)
 //   acc += bf16(y1) @ ws[t]                          (fused, f32)
-// so the T*C-channel slots never reach device memory.  The two products
-// run on the tensor cores (WMMA bf16, f32 accumulate).  The TPU's slab
+// so the T*C-channel slots never reach device memory.  The TPU's slab
 // DMAs, (8, 128) padding and tiling are not carried over: the card
 // gathers the corner rows directly and its caches hold the neighbours.
 //
@@ -25,23 +24,50 @@
 // no start reset, no new history, no epilogue.  It is launched as one
 // slot of C channels.
 //
-// Block: 64 consecutive voxels of one sample in (z, y, x) order, 4 warps,
-// warp w owns rows 16w..16w+15 through every phase, so only the staging
-// of ws[t] (shared by the warps) needs block barriers.  Each lane reads
-// 16-byte channel vectors of a corner row: a warp reads 512 contiguous
-// bytes of it.
-//
 // Bound: bytes -- the history is read once and the new history (K1) or
 // the warped volume (K5) written once (2 x 205 MB in bf16 at the
 // flagship); K1's epilogue, 49 GFLOP, sits below that on the tensor cores.
+//
+// Two kernels.  fuse_warp_kernel (K5, and K1 without the epilogue): 64
+// consecutive voxels of one sample in (z, y, x) order a block, 4 warps,
+// warp w owns rows 16w..16w+15; each lane reads 16-byte channel vectors of
+// a corner row, so a warp reads 512 contiguous bytes of it.
+//
+// fuse_warp_epi (K1 with the epilogue) puts the epilogue behind the
+// gather on Hopper's wgmma.  A block owns BM = 128 voxels in (z, y, x)
+// order and has 512 threads in two roles:
+//  * 8 gather warps (warpgroups 2, 3; 96 registers each by setmaxnreg):
+//    warp w owns rows 16w..16w+15.  Per slot a lane computes a 16-byte
+//    chunk (8 channels) of a row's warped slot from its 8 corner rows --
+//    all 8 loads issued together: a corner outside the volume reads the
+//    clamped row with weight 0, as the plain version does -- applies the
+//    start reset, writes the new history's chunk to device memory and the
+//    chunk, as bf16, into an A stage in the 128-byte swizzle that wgmma
+//    reads K-major (chunk c of row r at chunk position c ^ (r & 7) of its
+//    128-byte row, in K step c / 8).  Then fence.proxy.async (wgmma reads
+//    through the async proxy) and one arrival on the stage's full barrier.
+//  * 2 consumer warpgroups (warpgroups 0, 1; 160 registers): warpgroup g
+//    owns rows 64g..64g+63 and waits only for gather warps 4g..4g+3.  Per
+//    slot Y1 = A @ kc^T on wgmma m64nCk16 (f32 in registers); + brow,
+//    relu, bf16 into the warpgroup's own A2 tile (same layout),
+//    fence.proxy.async and a named barrier over its 128 threads; then
+//    ACC += A2 @ ws[t]^T on wgmma m64nFk16.  ACC (64 x F f32, F / 2
+//    registers a thread) stays in registers over all T slots and is
+//    written once to fused (B, Y, X, Z, F) f32, rows past V masked.
+//  * Weights by TMA (tma_wgmma.cuh): kc^T (C, C) loaded once per block;
+//    ws relaid out to (B*T, F, C) arrives slot by slot through a 2-stage
+//    ring (full / empty mbarriers), issued by thread 0.  C = 80 makes two
+//    64-channel K steps, the second box zero-filled past C; only the
+//    C / 16 k16 slices that hold channels are multiplied.
+// The plan (BM, the stages, the shared-memory bytes) is mirrored in
+// Python (ops/pallas_fuse_warp.py::plan_epilogue); the entry refuses a
+// launch whose byte count differs from the kernel's.
+//
+// The warp, reset and ring update do the same f32 operations in the same
+// order as the plain version, under --fmad=false: the new history is
+// bit-identical to it.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -94,34 +120,19 @@ struct Args {
   const float* mat;   // (B, 12) rows 0..2 of the 4x4 flow
   const float* start; // (B,) 0 or 1, ring update only
   const int32_t* hsel;  // (B,) slot overwritten by curr, ring update only
-  const bf16* kc;     // (C, C) folded time conv
-  const float* brow;  // (B, T, C) tvec * ke + kb
-  const bf16* ws;     // (B, T*C, F) cat-conv rows in ring-slot order
   void* new_hist;     // (B, Z, Y, X, T*C), ring update only
-  void* slots;        // (B, Y, X, Z, T*C), no epilogue
-  float* fused;       // (B, Y, X, Z, F), epilogue
-  int Z, Y, X, C, T, F;
+  void* slots;        // (B, Y, X, Z, T*C)
+  int Z, Y, X, C, T;
 };
 
-__host__ __device__ inline size_t epi_smem(int C, int F) {
-  return (size_t)kRows * 8 * 8          // corner rows + weights
-         + (size_t)kRows * C * 2        // A: warped slot / relu'd y1, bf16
-         + (size_t)kRows * C * 4        // Y1: time-conv output, f32
-         + (size_t)C * C * 2            // kc
-         + (size_t)C * F * 2            // ws[t]
-         + (size_t)kRows * F * 4;       // cat-conv accumulator, f32
-}
-
-// kEpi: K1's conv epilogue (T = bf16, kRing).  kRing: K1's ring update;
-// off, the warp alone (K5).
-template <typename T, bool kEpi, bool kRing>
+// kRing: K1's ring update; off, the warp alone (K5).
+template <typename T, bool kRing>
 __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
-  static_assert(!kEpi || (kRing && sizeof(T) == 2), "epilogue is K1's");
   constexpr int VN = Vec<T>::N;
   extern __shared__ __align__(128) unsigned char smem[];
   const T* hist = static_cast<const T*>(a.hist);
   const int b = blockIdx.y;
-  const int Z = a.Z, Y = a.Y, X = a.X, C = a.C, T_ = a.T, F = a.F;
+  const int Z = a.Z, Y = a.Y, X = a.X, C = a.C, T_ = a.T;
   const int V = Z * Y * X;
   const int TC = T_ * C;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -130,16 +141,6 @@ __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
 
   int* crow = reinterpret_cast<int*>(smem);           // [kRows][8]
   float* cw = reinterpret_cast<float*>(crow + kRows * 8);
-  bf16* A = reinterpret_cast<bf16*>(cw + kRows * 8);  // [kRows][C]
-  float* Y1 = reinterpret_cast<float*>(A + kRows * C);
-  bf16* KC = reinterpret_cast<bf16*>(Y1 + kRows * C);
-  bf16* WS = KC + C * C;
-  float* ACC = reinterpret_cast<float*>(WS + C * F);
-
-  if (kEpi) {
-    for (int e = threadIdx.x; e < C * C; e += kThreads) KC[e] = a.kc[e];
-    for (int e = threadIdx.x; e < kRows * F; e += kThreads) ACC[e] = 0.f;
-  }
 
   // corner rows and weights of this warp's voxels
   const float* m = a.mat + b * 12;
@@ -175,24 +176,12 @@ __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
   const int hsel = kRing ? a.hsel[b] : -1;
   const int nvec = C / VN;  // 16-byte vectors per slot row
   for (int t = 0; t < T_; ++t) {
-    if (kEpi) {
-      __syncthreads();  // every warp is done with ws[t-1]
-      const uint4* src = reinterpret_cast<const uint4*>(
-          a.ws + ((int64_t)b * TC + (int64_t)t * C) * F);
-      for (int e = threadIdx.x; e < C * F / 8; e += kThreads)
-        reinterpret_cast<uint4*>(WS)[e] = src[e];
-    }
     const float mk = (t == hsel) ? 1.f : 0.f;
     for (int e = lane; e < 16 * nvec; e += 32) {
       const int r = r0 + e / nvec, cv = e % nvec;
       const int v = v0 + r;
       float acc[VN] = {};
-      if (v >= V) {
-        if (kEpi)
-          for (int j = 0; j < VN; ++j)
-            A[r * C + cv * VN + j] = __float2bfloat16_rn(0.f);
-        continue;
-      }
+      if (v >= V) continue;
       for (int k = 0; k < 8; ++k) {
         const int row = crow[r * 8 + k];
         if (row < 0) continue;
@@ -221,99 +210,385 @@ __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
                                   ((int64_t)b * V + v) * TC + t * C +
                                   cv * VN) = Vec<T>::pack(hv);
       }
-      const uint4 wq = Vec<T>::pack(acc);
-      if (kEpi)
-        *reinterpret_cast<uint4*>(A + r * C + cv * VN) = wq;
-      else
-        *reinterpret_cast<uint4*>(static_cast<T*>(a.slots) + vox * TC +
-                                  t * C + cv * VN) = wq;
-    }
-    if constexpr (kEpi) {
-      __syncthreads();  // ws[t] staged; A rows written
-
-      // y1 = A @ kc for this warp's 16 rows
-      for (int j = 0; j < C / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> y;
-        wmma::fill_fragment(y, 0.f);
-        for (int kk = 0; kk < C / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, A + r0 * C + kk * 16, C);
-          wmma::load_matrix_sync(fb, KC + kk * 16 * C + j * 16, C);
-          wmma::mma_sync(y, fa, fb, y);
-        }
-        wmma::store_matrix_sync(Y1 + r0 * C + j * 16, y, C,
-                                wmma::mem_row_major);
-      }
-      __syncwarp();
-      const float* br = a.brow + ((int64_t)b * T_ + t) * C;
-      for (int e = lane; e < 16 * C; e += 32) {
-        const int r = r0 + e / C, c = e % C;
-        A[r * C + c] = __float2bfloat16_rn(fmaxf(Y1[r * C + c] + br[c], 0.f));
-      }
-      __syncwarp();
-      // acc += relu'd y1 @ ws[t]
-      for (int j = 0; j < F / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, ACC + r0 * F + j * 16, F,
-                               wmma::mem_row_major);
-        for (int kk = 0; kk < C / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, A + r0 * C + kk * 16, C);
-          wmma::load_matrix_sync(fb, WS + kk * 16 * F + j * 16, F);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(ACC + r0 * F + j * 16, acc, F,
-                                wmma::mem_row_major);
-      }
-    }
-  }
-  if constexpr (kEpi) {
-    __syncwarp();
-    for (int e = lane; e < 16 * (F / 4); e += 32) {
-      const int r = r0 + e / (F / 4), c4 = e % (F / 4);
-      const int v = v0 + r;
-      if (v >= V) continue;
-      const int x = v % X, y = (v / X) % Y, z = v / (X * Y);
-      const int64_t vox = (((int64_t)b * Y + y) * X + x) * Z + z;
-      reinterpret_cast<float4*>(a.fused + vox * F)[c4] =
-          reinterpret_cast<const float4*>(ACC + r * F)[c4];
+      *reinterpret_cast<uint4*>(static_cast<T*>(a.slots) + vox * TC +
+                                t * C + cv * VN) = Vec<T>::pack(acc);
     }
   }
 }
 
+// ------------------------------------------------- K1 epilogue on wgmma
+constexpr int kEpiRows = 128;      // BM: voxels of a block
+constexpr int kEpiThreads = 512;   // 2 consumer warpgroups, 8 gather warps
+constexpr int kAStages = 2;        // A ring (warped slots)
+constexpr int kWStages = 2;        // ws ring
+constexpr int kGatherRegs = 96;    // setmaxnreg: 256 x 96 + 256 x 160
+constexpr int kConsumerRegs = 160; // = 65536 registers
+
+// Shared memory of fuse_warp_epi<C, F>, from its 1024-aligned base: the A
+// ring, the two warpgroups' A2 tiles, the ws ring, kc^T, the corner table
+// (int rows then f32 weights, [BM][8] each), the mbarriers; + 1024 bytes
+// of alignment slack.  Every tile is KS K steps of 128-byte rows.
+template <int C, int F>
+struct EpiLayout {
+  static constexpr int KS = (C + 63) / 64;  // 64-channel K steps
+  static constexpr int K16 = C / 16;        // k16 slices that hold channels
+  static constexpr uint32_t kAStep = kEpiRows * 128, kA = KS * kAStep;
+  static constexpr uint32_t kA2Step = 64 * 128, kA2 = KS * kA2Step;
+  static constexpr uint32_t kWStep = F * 128, kW = KS * kWStep;
+  static constexpr uint32_t kKStep = C * 128, kK = KS * kKStep;
+  static constexpr uint32_t oA = 0;
+  static constexpr uint32_t oA2 = oA + kAStages * kA;
+  static constexpr uint32_t oW = oA2 + 2 * kA2;
+  static constexpr uint32_t oK = oW + kWStages * kW;
+  static constexpr uint32_t oCorner = oK + kK;
+  static constexpr uint32_t oBar = oCorner + kEpiRows * 8 * 8;
+  // fullA[2][kAStages], emptyA[2][kAStages], fullW[kWStages],
+  // emptyW[kWStages], kc
+  static constexpr int kBars = 4 * kAStages + 2 * kWStages + 1;
+  static constexpr int kSmem = oBar + kBars * 8 + 1024;
+  static_assert(C % 16 == 0 && C <= 128 && F % 16 == 0 && F <= 256, "C, F");
+};
+
+struct EpiArgs {
+  const bf16* hist;     // (B, Z, Y, X, T*C)
+  const bf16* curr;     // (B, Y, X, Z, C)
+  const float* mat;     // (B, 12)
+  const float* start;   // (B,)
+  const int32_t* hsel;  // (B,)
+  const float* brow;    // (B, T, C) tvec * ke + kb
+  bf16* new_hist;       // (B, Z, Y, X, T*C)
+  float* fused;         // (B, Y, X, Z, F)
+  int Z, Y, X, T;
+};
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// Arm `bar` for and load the ks K steps of row block `row` of the 3-D
+// map m (64 channels, all rows, 1) into dst, `step` bytes apart.
+__device__ __forceinline__ void load_tiles(uint32_t dst, const CUtensorMap* m,
+                                           uint32_t bar, int ks,
+                                           uint32_t step, int row) {
+  mbar_expect_tx(bar, ks * step);
+  for (int k = 0; k < ks; ++k)
+    tma_load_3d(dst + k * step, m, bar, k * 64, 0, row);
+}
+
+// Byte offset of the 16-byte chunk c (8 channels) of row r in a tile of
+// 128-byte rows in the 128-byte swizzle, K step c / 8 at c / 8 * step.
+__device__ __forceinline__ uint32_t sw128_chunk(int r, int c, uint32_t step) {
+  return (c / 8) * step + r * 128 + (((c % 8) ^ (r & 7)) << 4);
+}
+
+template <int C, int F>
+__global__ void __launch_bounds__(kEpiThreads, 1)
+    fuse_warp_epi(const __grid_constant__ CUtensorMap kcmap,
+                  const __grid_constant__ CUtensorMap wsmap,
+                  const EpiArgs a) {
+  typedef EpiLayout<C, F> L;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const sm = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + L::oBar;
+  // barrier addresses
+  auto full_a = [&](int g, int s) { return bars + 8 * (g * kAStages + s); };
+  auto empty_a = [&](int g, int s) {
+    return bars + 8 * (2 * kAStages + g * kAStages + s);
+  };
+  auto full_w = [&](int s) { return bars + 8 * (4 * kAStages + s); };
+  auto empty_w = [&](int s) {
+    return bars + 8 * (4 * kAStages + kWStages + s);
+  };
+  const uint32_t kc_bar = bars + 8 * (4 * kAStages + 2 * kWStages);
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < 2; ++g)
+      for (int s = 0; s < kAStages; ++s) {
+        mbar_init(full_a(g, s), 128);  // every gather thread of the half
+        mbar_init(empty_a(g, s), 4);   // one arrival per consumer warp
+      }
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full_w(s), 1);
+      mbar_init(empty_w(s), 8);
+    }
+    mbar_init(kc_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int b = blockIdx.y, T = a.T;
+  const int Z = a.Z, Y = a.Y, X = a.X, V = Z * Y * X;
+  const int v0 = blockIdx.x * kEpiRows;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x < 256) {  // ----------------------------- consumers
+    reg_alloc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128, wq = (threadIdx.x % 128) / 32;
+    if (threadIdx.x == 0) {  // thread 0 issues the TMA loads
+      load_tiles(base + L::oK, &kcmap, kc_bar, L::KS, L::kKStep, 0);
+      for (int s = 0; s < kWStages && s < T; ++s)
+        load_tiles(base + L::oW + s * L::kW, &wsmap, full_w(s), L::KS,
+                   L::kWStep, b * T + s);
+    }
+    float acc[F / 2];
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < F / 2; ++i) fence_reg(acc[i]);
+    mbar_wait(kc_bar, 0);
+    const uint32_t a2 = base + L::oA2 + wg * L::kA2;
+    for (int t = 0; t < T; ++t) {
+      const int sa = t % kAStages, sw = t % kWStages;
+      // Y1 = A (this warpgroup's 64 rows) @ kc^T
+      float y[C / 2];
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) y[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) fence_reg(y[i]);
+      mbar_wait(full_a(wg, sa), (t / kAStages) & 1);
+      const uint32_t at = base + L::oA + sa * L::kA + wg * 64 * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < L::K16; ++k)
+        wgmma_bn<C>(y, sw128_desc(at + (k / 4) * L::kAStep + 32 * (k % 4)),
+                    sw128_desc(base + L::oK + (k / 4) * L::kKStep +
+                               32 * (k % 4)));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) fence_reg(y[i]);
+      if (lane == 0) mbar_arrive(empty_a(wg, sa));
+      // relu(Y1 + brow) as bf16 into A2: rows wq*16 + lane/4 (+ 8),
+      // channels 8j + 2 (lane % 4) (+ 1) of the accumulator fragment
+      const float* br = a.brow + ((int64_t)b * T + t) * C + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j) {
+        const float2 bj = *reinterpret_cast<const float2*>(br + 8 * j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = wq * 16 + lane / 4 + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(
+              sm + L::oA2 + wg * L::kA2 + sw128_chunk(m, j, L::kA2Step) +
+              4 * (lane % 4)) =
+              __floats2bfloat162_rn(fmaxf(y[j * 4 + 2 * h] + bj.x, 0.f),
+                                    fmaxf(y[j * 4 + 2 * h + 1] + bj.y, 0.f));
+        }
+      }
+      fence_async_smem();
+      named_bar_sync(1 + wg, 128);
+      // ACC += A2 @ ws[t]^T
+      mbar_wait(full_w(sw), (t / kWStages) & 1);
+      const uint32_t wt = base + L::oW + sw * L::kW;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < L::K16; ++k)
+        wgmma_bn<F>(acc, sw128_desc(a2 + (k / 4) * L::kA2Step + 32 * (k % 4)),
+                    sw128_desc(wt + (k / 4) * L::kWStep + 32 * (k % 4)));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < F / 2; ++i) fence_reg(acc[i]);
+      if (lane == 0) mbar_arrive(empty_w(sw));
+      if (threadIdx.x == 0 && t + kWStages < T) {
+        mbar_wait(empty_w(sw), (t / kWStages) & 1);
+        load_tiles(wt, &wsmap, full_w(sw), L::KS, L::kWStep,
+                   b * T + t + kWStages);
+      }
+      __syncwarp();  // warp 0 reconverges before the next wgmma
+    }
+    // ACC to fused, (z, y, x) -> (y, x, z), rows past V masked
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = v0 + wg * 64 + wq * 16 + lane / 4 + 8 * h;
+      if (v >= V) continue;
+      const int x = v % X, yy = (v / X) % Y, z = v / (X * Y);
+      float* out = a.fused + ((((int64_t)b * Y + yy) * X + x) * Z + z) * F +
+                   2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < F / 8; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- gather
+  reg_dealloc<kGatherRegs>();
+  constexpr int NV = C / 8;           // 16-byte chunks of a slot row
+  constexpr int NT = 16 * NV / 32;    // chunks per lane per slot
+  const int gw = (threadIdx.x - 256) / 32;  // gather warp 0..7
+  const int g = gw / 4, r0 = gw * 16;       // its half, its first row
+  const int TC = T * C;
+  int* crow = reinterpret_cast<int*>(sm + L::oCorner);  // [BM][8]
+  float* cw = reinterpret_cast<float*>(crow + kEpiRows * 8);
+  if (lane < 16) {
+    // corner rows (clamped) and weights (0 outside the volume) of row r;
+    // a row past V takes voxel V - 1's (its stores are masked)
+    const int r = r0 + lane, v = min(v0 + r, V - 1);
+    const float* m = a.mat + b * 12;
+    const float gx = (float)(v % X), gy = (float)((v / X) % Y);
+    const float gz = (float)(v / (X * Y));
+    const float xs = m[0] * gx + m[1] * gy + m[3] + m[2] * gz;
+    const float ys = m[4] * gx + m[5] * gy + m[7] + m[6] * gz;
+    const float zs = m[8] * gx + m[9] * gy + m[11] + m[10] * gz;
+    const float x0 = floorf(xs), y0 = floorf(ys), z0 = floorf(zs);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float ix = x0 + (k & 1), iy = y0 + ((k >> 1) & 1);
+      const float iz = z0 + (k >> 2);
+      const bool ok = ix >= 0.f && ix <= X - 1 && iy >= 0.f &&
+                      iy <= Y - 1 && iz >= 0.f && iz <= Z - 1;
+      const float w = (1.f - fabsf(xs - ix)) * (1.f - fabsf(ys - iy)) *
+                      (1.f - fabsf(zs - iz));
+      const int cx = (int)fminf(fmaxf(ix, 0.f), (float)(X - 1));
+      const int cy = (int)fminf(fmaxf(iy, 0.f), (float)(Y - 1));
+      const int cz = (int)fminf(fmaxf(iz, 0.f), (float)(Z - 1));
+      crow[r * 8 + k] = ((b * Z + cz) * Y + cy) * X + cx;
+      cw[r * 8 + k] = ok ? Vec<bf16>::round(w) : 0.f;
+    }
+  }
+  __syncwarp();
+
+  const float s = a.start[b];
+  const int hsel = a.hsel[b];
+  for (int t = 0; t < T; ++t) {
+    const int sa = t % kAStages;
+    if (t >= kAStages)
+      mbar_wait(empty_a(g, sa), (t / kAStages - 1) & 1);
+    uint8_t* const at = sm + L::oA + sa * L::kA;
+    const float mk = (t == hsel) ? 1.f : 0.f;
+#pragma unroll 1
+    for (int i = 0; i < NT; ++i) {
+      const int e = lane + 32 * i;
+      const int r = r0 + e / NV, cv = e % NV;
+      const int v = v0 + r, vc = min(v, V - 1);
+      const int4 rl = *reinterpret_cast<const int4*>(crow + r * 8);
+      const int4 rh = *reinterpret_cast<const int4*>(crow + r * 8 + 4);
+      const float4 wl = *reinterpret_cast<const float4*>(cw + r * 8);
+      const float4 wh = *reinterpret_cast<const float4*>(cw + r * 8 + 4);
+      const int rows[8] = {rl.x, rl.y, rl.z, rl.w, rh.x, rh.y, rh.z, rh.w};
+      const float ws_[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+      const int64_t off = (int64_t)t * C + cv * 8;
+      uint4 q[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        q[k] = __ldg(reinterpret_cast<const uint4*>(
+            a.hist + (int64_t)rows[k] * TC + off));
+      const int x = vc % X, yy = (vc / X) % Y, z = vc / (X * Y);
+      const int64_t vox = (((int64_t)b * Y + yy) * X + x) * Z + z;
+      const uint4 cq =
+          __ldg(reinterpret_cast<const uint4*>(a.curr + vox * C + cv * 8));
+      float acc[8] = {};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float f[8];
+        Vec<bf16>::unpack(q[k], f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += ws_[k] * f[j];
+      }
+      float cf[8], hv[8];
+      Vec<bf16>::unpack(cq, cf);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float w0 = acc[j] * (1.f - s) + cf[j] * s;
+        hv[j] = w0 * (1.f - mk) + cf[j] * mk;
+        acc[j] = w0;
+      }
+      if (v < V)
+        *reinterpret_cast<uint4*>(a.new_hist + ((int64_t)b * V + v) * TC +
+                                  off) = Vec<bf16>::pack(hv);
+      *reinterpret_cast<uint4*>(at + sw128_chunk(r, cv, L::kAStep)) =
+          Vec<bf16>::pack(acc);
+    }
+    fence_async_smem();
+    mbar_arrive(full_a(g, sa));
+  }
+}
+
+template <int C, int F>
+int launch_epi(const EpiArgs& a, const bf16* kc_t, const bf16* ws_t, int B,
+               int smem, cudaStream_t stream) {
+  typedef EpiLayout<C, F> L;
+  if (smem != L::kSmem) return (int)cudaErrorInvalidValue;
+  CUtensorMap km, wm;
+  const cuuint64_t kd[3] = {(cuuint64_t)C, (cuuint64_t)C, 1};
+  const cuuint32_t kb[3] = {64, (cuuint32_t)C, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)C, (cuuint64_t)F,
+                            (cuuint64_t)B * a.T};
+  const cuuint32_t wb[3] = {64, (cuuint32_t)F, 1};
+  int r = encode(&km, kc_t, 3, kd, kb);
+  if (r == 0) r = encode(&wm, ws_t, 3, wd, wb);
+  if (r != 0) return r;
+  static uint64_t smem_set = 0;
+  r = allow_smem(fuse_warp_epi<C, F>, L::kSmem, smem_set);
+  if (r != 0) return r;
+  const int V = a.Z * a.Y * a.X;
+  const dim3 grid((V + kEpiRows - 1) / kEpiRows, B);
+  fuse_warp_epi<C, F><<<grid, kEpiThreads, L::kSmem, stream>>>(km, wm, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" size_t fbbev_fuse_warp_smem(int C, int F) { return epi_smem(C, F); }
-
-// K1.  kc == nullptr selects the variant without the epilogue (slots
-// written).  bf16 history and curr.
+// K1 without the epilogue: the warped slots (B, Y, X, Z, T*C) and the new
+// history.  bf16 history and curr, C a multiple of 8.
 extern "C" int fbbev_fuse_warp(const void* hist, const void* curr,
                                const float* mat, const float* start,
-                               const int32_t* hsel, const void* kc,
-                               const float* brow, const void* ws,
-                               void* new_hist, void* slots, float* fused,
-                               int B, int Z, int Y, int X, int C, int T,
-                               int F, void* stream) {
-  Args a{hist, curr, mat, start, hsel, (const bf16*)kc, brow,
-         (const bf16*)ws, new_hist, slots, fused, Z, Y, X, C, T, F};
+                               const int32_t* hsel, void* new_hist,
+                               void* slots, int B, int Z, int Y, int X,
+                               int C, int T, void* stream) {
+  if (C % 8 || B < 0 || Z < 0 || Y < 0 || X < 0 || T < 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{hist, curr, mat, start, hsel, new_hist, slots, Z, Y, X, C, T};
   const int V = Z * Y * X;
+  if (B == 0 || V == 0 || T == 0) return 0;
   const dim3 grid((V + kRows - 1) / kRows, B);
-  if (B == 0 || V == 0) return 0;
-  if (kc != nullptr) {
-    const size_t smem = epi_smem(C, F);
-    cudaError_t err = cudaFuncSetAttribute(
-        fuse_warp_kernel<bf16, true, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fuse_warp_kernel<bf16, true, true>
-        <<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
-  } else {
-    fuse_warp_kernel<bf16, false, true>
-        <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
-  }
+  fuse_warp_kernel<bf16, true>
+      <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K1 with the epilogue: fused (B, Y, X, Z, F) f32 and the new history.
+// kc_t (C, C) is kc transposed (output channel, input channel) and ws_t
+// (B*T, F, C) the cat-conv rows of each slot transposed, both bf16; smem
+// the plan's shared-memory bytes.  (C, F) = (80, 160), the flagship's, or
+// (64, 128), the small config's; every pointer 16-byte aligned.
+extern "C" int fbbev_fuse_warp_epi(const void* hist, const void* curr,
+                                   const float* mat, const float* start,
+                                   const int32_t* hsel, const void* kc_t,
+                                   const float* brow, const void* ws_t,
+                                   void* new_hist, float* fused, int B,
+                                   int Z, int Y, int X, int C, int T, int F,
+                                   int smem, void* stream) {
+  const uintptr_t align = (uintptr_t)hist | (uintptr_t)curr |
+                          (uintptr_t)kc_t | (uintptr_t)ws_t |
+                          (uintptr_t)new_hist | (uintptr_t)fused |
+                          (uintptr_t)brow;
+  if (align % 16 || B < 0 || Z < 0 || Y < 0 || X < 0 || T < 0)
+    return (int)cudaErrorInvalidValue;
+  const int V = Z * Y * X;
+  if (B == 0 || V == 0) return 0;
+  if (T == 0) return (int)cudaErrorInvalidValue;
+  const EpiArgs a{static_cast<const bf16*>(hist),
+                  static_cast<const bf16*>(curr), mat, start, hsel, brow,
+                  static_cast<bf16*>(new_hist), fused, Z, Y, X, T};
+  const bf16* k = static_cast<const bf16*>(kc_t);
+  const bf16* w = static_cast<const bf16*>(ws_t);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 80 && F == 160) return launch_epi<80, 160>(a, k, w, B, smem, st);
+  if (C == 64 && F == 128) return launch_epi<64, 128>(a, k, w, B, smem, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5: vol (B, Z, Y, X, C) -> out (B, Y, X, Z, C), bf16 (is_bf16) or f32;
@@ -323,16 +598,15 @@ extern "C" int fbbev_warp_affine(const void* vol, const float* mat,
                                  int X, int C, void* stream) {
   if (C % 8 || B < 0 || Z < 0 || Y < 0 || X < 0)
     return (int)cudaErrorInvalidValue;
-  Args a{vol, nullptr, mat, nullptr, nullptr, nullptr, nullptr, nullptr,
-         nullptr, out, nullptr, Z, Y, X, C, 1, 0};
+  Args a{vol, nullptr, mat, nullptr, nullptr, nullptr, out, Z, Y, X, C, 1};
   const int V = Z * Y * X;
   if (B == 0 || V == 0 || C == 0) return 0;
   const dim3 grid((V + kRows - 1) / kRows, B);
   if (is_bf16)
-    fuse_warp_kernel<bf16, false, false>
+    fuse_warp_kernel<bf16, false>
         <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
   else
-    fuse_warp_kernel<float, false, false>
+    fuse_warp_kernel<float, false>
         <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

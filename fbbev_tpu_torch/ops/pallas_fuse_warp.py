@@ -10,13 +10,20 @@ in the new history and, with the epilogue, the folded time conv and the
 slots' rows of the cat conv: ``sum_t relu(slot_t @ kc + tvec_t*ke + kb)
 @ ws[t]``, so the ``T*C``-channel slots never reach device memory.
 
-CUDA kernel (``csrc/fuse_warp.cu``): one block of 64 voxels, the 8 corner
-rows read directly (no slabs), the two products of the epilogue on the
-tensor cores (WMMA bf16, f32 accumulate).  Bound on the card: bytes (the
-history read once and the new history written once, 2 x 205 MB in bf16
-at the flagship): about 0.14 ms on an H100 SXM (``chip_smoke.py``).
-The TPU kernel is exact inside its locality contract
-(``pallas_fuse_warp.py:40-43``); the kernel and the plain version here
+CUDA kernels (``csrc/fuse_warp.cu``).  With the epilogue (the serving
+path): ``fuse_warp_epi``, a block of :data:`BM` = 128 voxels whose 8
+gather warps write each slot's warped rows into a shared-memory A stage
+and whose 2 consumer warpgroups run both products on ``wgmma`` with the
+cat-conv accumulator in registers; ``kc`` and ``ws`` arrive by TMA from
+the K-major copies :func:`relayout_epilogue` makes.  :func:`plan_epilogue`
+is the kernel's plan (tile, stages, shared-memory bytes) in Python: the
+wrapper checks it and hands its byte count to the entry, which refuses a
+launch whose count differs from the kernel's.  Without the epilogue: one
+block of 64 voxels, the 8 corner rows read directly.  Bound on the card:
+bytes (the history read once and the new history written once, 2 x 205 MB
+in bf16 at the flagship): about 0.14 ms on an H100 SXM
+(``chip_smoke.py``).  The TPU kernel is exact inside its locality contract
+(``pallas_fuse_warp.py:40-43``); the kernels and the plain version here
 compute the exact warp everywhere, so they agree with it inside that
 contract.
 
@@ -27,14 +34,56 @@ is rounded to the history dtype, the warped slot is rounded to it before
 
 from __future__ import annotations
 
-import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from fbbev_tpu_torch.ops import _cuda
 
 launches = 0
+
+BM = 128          # voxels of a block of the epilogue kernel
+A_STAGES = 2      # its ring of warped-slot tiles
+W_STAGES = 2      # its ring of ws[t] tiles
+SMEM_LIMIT = 232448  # shared memory a block may take on an H100
+# (C, F) the epilogue kernel is instantiated for (wgmma N = C and F): the
+# flagship's and the small config's
+EPI_SHAPES = ((80, 160), (64, 128))
+
+
+class EpiPlan(NamedTuple):
+    """The epilogue kernel's plan: ``BM`` voxels a block, ``k_steps``
+    64-channel K steps of every tile, the rings' depths, the shared-memory
+    bytes of ``fuse_warp.cu::EpiLayout`` and the grid (V tiles, B)."""
+    BM: int
+    k_steps: int
+    a_stages: int
+    w_stages: int
+    smem: int
+    grid: Tuple[int, int]
+
+
+def plan_epilogue(B: int, Z: int, Y: int, X: int, C: int,
+                  F: int) -> EpiPlan:
+    """The plan of ``fuse_warp_epi<C, F>`` at these shapes.  Shared memory,
+    each tile in 128-byte rows (64 channels of a K step): the A ring (BM
+    rows), two warpgroups' A2 tiles (64 rows each), the ws ring (F rows),
+    kc^T (C rows), the corner table (BM x 8 int rows and f32 weights), the
+    mbarriers, 1024 bytes of alignment slack.  Raises on shapes the kernel
+    does not take."""
+    if (C, F) not in EPI_SHAPES:
+        raise ValueError(f"the CUDA fuse_warp epilogue takes (C, F) in "
+                         f"{EPI_SHAPES}, not {(C, F)}")
+    ks = -(-C // 64)
+    row = 128 * ks
+    bars = 4 * A_STAGES + 2 * W_STAGES + 1
+    smem = (A_STAGES * BM * row + 2 * 64 * row + W_STAGES * F * row
+            + C * row + BM * 8 * 8 + 8 * bars + 1024)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fuse_warp epilogue plan takes {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return EpiPlan(BM, ks, A_STAGES, W_STAGES, smem,
+                   (-(-(Z * Y * X) // BM), B))
 
 
 def _corners(mat: torch.Tensor, Z: int, Y: int, X: int):
@@ -104,6 +153,26 @@ def _brow(epi: dict) -> torch.Tensor:
             + epi["kb"].float()[None, None])
 
 
+def relayout_epilogue(epi: dict, B: int, T: int, C: int,
+                      dtype: torch.dtype = torch.bfloat16):
+    """The epilogue's weights as the kernel's TMA reads them, K-major in
+    ``dtype``: ``kc^T`` (C, C), row = output channel, and ``ws`` (B, T*C,
+    F) as (B*T, F, C), row b*T + t holding slot t's F x C block
+    transposed."""
+    kc_t = epi["kc"].to(dtype).t().contiguous()
+    ws = epi["ws"].to(dtype)
+    F = ws.shape[-1]
+    ws_t = ws.reshape(B, T, C, F).transpose(2, 3).reshape(B * T, F, C)
+    return kc_t, ws_t.contiguous()
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Every tensor on the card, contiguous and 16-byte aligned (the
+    kernels' vector loads and TMA)."""
+    return all(t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in ts)
+
+
 def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
               start: torch.Tensor, hsel: torch.Tensor,
               epilogue: Optional[dict] = None):
@@ -120,9 +189,11 @@ def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
 
     Returns ``(slots (B, Y, X, Z, T*C), new_hist)`` without the epilogue,
     ``(fused_part (B, Y, X, Z, F) f32, new_hist)`` with it.  CUDA tensors
-    launch the kernel (bf16 history); CPU tensors take the plain version.
-    Raises ``RuntimeError`` when grad mode is on and an input requires
-    grad: training fuses history with ``FBOCC.fuse_history_aged``.
+    launch the kernel (bf16 history, C a multiple of 8; with the epilogue
+    (C, F) in :data:`EPI_SHAPES`) and raise on inputs it does not take;
+    CPU tensors take the plain version.  Raises ``RuntimeError`` when
+    grad mode is on and an input requires grad: training fuses history
+    with ``FBOCC.fuse_history_aged``.
     """
     _cuda.refuse_grad("fuse_warp (K1)", hist, curr, mat,
                       *(epilogue or {}).values())
@@ -137,44 +208,41 @@ def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
     if T * C != TC or curr.shape != (B, Y, X, Z, C) or C % 8:
         raise ValueError(f"shapes {hist.shape} {curr.shape}")
     hist, curr = hist.contiguous(), curr.contiguous()
-    dev = hist.device
     mrows = mat[:, :3, :].float().reshape(B, 12).contiguous()
     start_f = start.float().reshape(B).contiguous()
     hsel_i = hsel.to(torch.int32).reshape(B).contiguous()
     new_hist = torch.empty_like(hist)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.lib("fuse_warp").fbbev_fuse_warp
-    fn.argtypes = [vp] * 11 + [ci] * 7 + [vp]
-    fn.restype = ci
-    keep = [mrows, start_f, hsel_i]
+    common = (hist, curr, mrows, start_f, hsel_i, new_hist)
+    stream = _cuda.stream_ptr(hist)
     if epilogue is None:
-        F = 0
-        slots = torch.empty(B, Y, X, Z, TC, dtype=curr.dtype, device=dev)
-        ptrs = (None, None, None, slots.data_ptr(), None)
-        out = slots
-    else:
-        kc = epilogue["kc"].to(torch.bfloat16).contiguous()
-        brow = _brow(epilogue).contiguous()
-        ws = epilogue["ws"].to(torch.bfloat16).contiguous()
-        F = ws.shape[-1]
-        if C % 16 or F % 16 or ws.shape != (B, TC, F):
-            raise ValueError(f"epilogue needs C, F multiples of 16: "
-                             f"C={C} ws={tuple(ws.shape)}")
-        smem = _cuda.lib("fuse_warp").fbbev_fuse_warp_smem
-        smem.argtypes, smem.restype = [ci, ci], ctypes.c_size_t
-        if smem(C, F) > 232448:
-            raise ValueError(f"C={C}, F={F} exceed the shared memory")
-        fused = torch.empty(B, Y, X, Z, F, dtype=torch.float32, device=dev)
-        keep += [kc, brow, ws]
-        ptrs = (kc.data_ptr(), brow.data_ptr(), ws.data_ptr(), None,
-                fused.data_ptr())
-        out = fused
-    for t in keep:
-        if not t.is_cuda:
-            raise ValueError("every fuse_warp input must be on the card")
-    _cuda.check(fn(hist.data_ptr(), curr.data_ptr(), mrows.data_ptr(),
-                   start_f.data_ptr(), hsel_i.data_ptr(), ptrs[0], ptrs[1],
-                   ptrs[2], new_hist.data_ptr(), ptrs[3], ptrs[4], B, Z, Y,
-                   X, C, T, F, _cuda.stream_ptr(hist)), "fuse_warp")
+        slots = torch.empty(B, Y, X, Z, TC, dtype=curr.dtype,
+                            device=hist.device)
+        if not _aligned(*common, slots):
+            raise ValueError("every fuse_warp input must be on the card, "
+                             "16-byte aligned")
+        _cuda.check(_cuda.entry("fuse_warp", "fbbev_fuse_warp", 7, 6)(
+            *(t.data_ptr() for t in common), slots.data_ptr(), B, Z, Y, X,
+            C, T, stream), "fuse_warp")
+        launches += 1
+        return slots, new_hist
+    F = epilogue["ws"].shape[-1]
+    if tuple(epilogue["ws"].shape) != (B, TC, F) or \
+            tuple(epilogue["kc"].shape) != (C, C):
+        raise ValueError(f"epilogue kc {tuple(epilogue['kc'].shape)} ws "
+                         f"{tuple(epilogue['ws'].shape)} for C={C}, T={T}")
+    plan = plan_epilogue(B, Z, Y, X, C, F)
+    kc_t, ws_t = relayout_epilogue(epilogue, B, T, C)
+    brow = _brow(epilogue).contiguous()
+    fused = torch.empty(B, Y, X, Z, F, dtype=torch.float32,
+                        device=hist.device)
+    if not _aligned(*common, kc_t, ws_t, brow, fused):
+        raise ValueError("every fuse_warp input must be on the card, "
+                         "16-byte aligned")
+    _cuda.check(_cuda.entry("fuse_warp", "fbbev_fuse_warp_epi", 10, 8)(
+        hist.data_ptr(), curr.data_ptr(), mrows.data_ptr(),
+        start_f.data_ptr(), hsel_i.data_ptr(), kc_t.data_ptr(),
+        brow.data_ptr(), ws_t.data_ptr(), new_hist.data_ptr(),
+        fused.data_ptr(), B, Z, Y, X, C, T, F, plan.smem, stream),
+        "fuse_warp")
     launches += 1
-    return out, new_hist
+    return fused, new_hist

@@ -63,35 +63,73 @@ def test_k3_kernel_matches_plain(dev, dtype):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# (B, T, start, hsel): one sample; two samples of 16 slots, one of them a
+# sequence start, the overwritten slot at 0 and at T - 1 (each with V =
+# 8 * 20 * 30, not a multiple of the epilogue kernel's 128-voxel tile)
+K1_CASES = {"one": (1, 4, [False], [2]),
+            "two_start_first": (2, 16, [True, False], [0, 15]),
+            "two_start_last": (2, 16, [False, True], [15, 0])}
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
 @pytest.mark.parametrize("epilogue", [False, True])
-def test_k1_kernel_matches_plain(dev, epilogue):
+def test_k1_kernel_matches_plain(dev, epilogue, case):
+    """The new history bit for bit; the warped slots (no epilogue) bit for
+    bit; the fused part within 2e-2 (f32 sums in another order can move
+    y1 across a bf16 rounding before the T*C-row product)."""
+    B, T, start, hsel = K1_CASES[case]
     g = torch.Generator(device="cpu").manual_seed(1)
-    B, Z, Y, X, C, T, F = 1, 8, 20, 30, 80, 4, 160
+    Z, Y, X, C, F = 8, 20, 30, 80, 160
     hist = torch.randn(B, Z, Y, X, T * C, generator=g).to(dev, torch.bfloat16)
     curr = torch.randn(B, Y, X, Z, C, generator=g).to(dev, torch.bfloat16)
     dx, bx, _ = geometry.gen_dx_bx((-8, 8, 0.8), (-12, 12, 0.8),
                                    (-1, 5.4, 0.8))
     f2b = torch.from_numpy(geometry.feat2bev_matrix(dx, bx)).to(dev)
-    c2p = torch.eye(4, device=dev)[None].clone()
-    c2p[0, 0, 3], c2p[0, 1, 3] = 0.5, -0.3
-    eye = torch.eye(4, device=dev)[None]
-    mat = geometry.flow_matrix_from_grid_args(eye, eye, c2p, f2b)
-    start = torch.tensor([False], device=dev)
-    hsel = torch.tensor([2], device=dev)
+    c2p = torch.eye(4, device=dev)[None].repeat(B, 1, 1)
+    c2p[:, 0, 3], c2p[:, 1, 3] = 0.5, -0.3
+    eye = torch.eye(4, device=dev)[None].expand(B, 4, 4)
+    start = torch.tensor(start, device=dev)
+    # start samples take the identity flow (the caller's contract)
+    mat = torch.where(start[:, None, None], eye,
+                      geometry.flow_matrix_from_grid_args(eye, eye, c2p, f2b))
+    hsel = torch.tensor(hsel, device=dev)
     epi = None
     if epilogue:
         epi = dict(kc=torch.randn(C, C, generator=g).to(dev) / 9,
                    ke=torch.randn(C, generator=g).to(dev) * 0.1,
                    kb=torch.randn(C, generator=g).to(dev) * 0.1,
                    tvec=torch.rand(B, T, generator=g).to(dev),
-                   ws=torch.randn(B, T * C, F, generator=g).to(dev) / 18)
+                   ws=torch.randn(B, T * C, F, generator=g).to(dev)
+                   / (T * C) ** 0.5)
+    before = K1.launches
     got, gh = K1.fuse_warp(hist, curr, mat, start, hsel, epilogue=epi)
+    assert K1.launches == before + 1
     want, wh = K1.fuse_warp_plain(hist, curr, mat, start, hsel, epilogue=epi)
     assert torch.equal(gh, wh)
     if epilogue:
         assert (got - want).abs().max().item() < 2e-2
     else:
         assert torch.equal(got, want)
+
+
+def test_k1_refuses_what_its_kernel_does_not_take(dev):
+    """No fallback on the card: a (C, F) the epilogue kernel is not built
+    for and a misaligned history raise."""
+    B, Z, Y, X, C, T = 1, 2, 4, 4, 80, 2
+    hist = torch.zeros(B, Z, Y, X, T * C, device=dev, dtype=torch.bfloat16)
+    curr = torch.zeros(B, Y, X, Z, C, device=dev, dtype=torch.bfloat16)
+    mat = torch.eye(4, device=dev)[None]
+    start, hsel = torch.tensor([False], device=dev), torch.tensor([0],
+                                                                  device=dev)
+    epi = dict(kc=torch.zeros(C, C, device=dev), ke=torch.zeros(C, device=dev),
+               kb=torch.zeros(C, device=dev), tvec=torch.zeros(B, T,
+                                                               device=dev),
+               ws=torch.zeros(B, T * C, 96, device=dev))
+    with pytest.raises(ValueError, match="takes \\(C, F\\)"):
+        K1.fuse_warp(hist, curr, mat, start, hsel, epilogue=epi)
+    flat = torch.zeros(hist.numel() + 1, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        K1.fuse_warp(flat[1:].view(hist.shape), curr, mat, start, hsel)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
