@@ -31,9 +31,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ms per step and peak device memory.
 8. Holds K5 (the age-ordered history warp), K6 (the 3x3x3 conv), K8 (the
    occ tail) and K9 (the occ blend) against their plain versions at the
-   flagship shapes, bf16 and f32, and times kernel, plain version and
-   library call.  Runs two more full-width streams with the model's route
-   arguments: ``fuse_warp=False, pallas_conv3d=True, occ_tail=True``
+   flagship shapes, bf16 and f32 (K8 also its labels-only launch against
+   its logits launch), and times kernel, plain version and library call
+   (K6, K8 and K9 also from a CUDA graph).  Runs two more full-width
+   streams with the model's route arguments: ``fuse_warp=False,
+   pallas_conv3d=True, occ_tail=True``
    (6 frames: K2, K3 twice, K5, K6 sixteen times and K8 per frame, no K1)
    and ``coarse_pred=False, occ_fuse=True`` (3 frames: K1 and K9 per
    frame), each with its launch counts set to 0 just before it and read
@@ -49,10 +51,15 @@ Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 the flagship frame time and its per-stage and per-kernel device times, for
 the kernel-routed configuration and the default one, then the flagship
 train step's time and its device time by kernel; ``--profile-default``
-the default configuration alone.  ``--k6-plans`` and ``--k7-plans`` time
+the default configuration alone; ``--profile-occ`` the routed and blend
+streams, those that take K8 and K9 (copied beside an older tree's
+package, it profiles that package).  ``--k6-plans`` and ``--k7-plans`` time
 every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
 ``--k1`` builds the kernels, holds K1 (both variants) and K5 against
-their plain versions at the flagship, times them and exits.
+their plain versions at the flagship, times them and exits; ``--occ``
+does the same for K9 and K8 (bf16 and f32; timed per call and from a
+CUDA graph, with their tile plans) after printing the ``-Xptxas -v``
+lines of ``occ_tail.cu``'s kernels (registers, spills).
 """
 
 import json
@@ -601,16 +608,44 @@ def check_k8(dev):
         if not (err <= tol and agree >= 0.999):
             raise AssertionError(f"K8 differs from its plain version: {err},"
                                  f" {agree}")
-    ms = cuda_time(lambda: K8.occ_tail(levels, w, a, b, k2), iters=10)
+    # labels-only and logits launches give the same labels
+    if not torch.equal(K8.occ_tail(levels, w, a, b, k2), lab):
+        raise AssertionError("K8 labels-only launch differs from the "
+                             "logits launch")
+    call = (lambda: K8.occ_tail(levels, w, a, b, k2))
+    ms = cuda_time(call, iters=10)
+    gms = graph_time(call)
     plain_ms = cuda_time(lambda: K8.occ_tail_plain(levels, w, a, b, k2),
                          iters=3, warmup=1)
     full = 200 * 200 * 16
     nbytes = sum(lv.numel() for lv in levels) * 2 + w.numel() * 2 + full * 8
     ops = blend_ops(64) + full * 64 * 3.0      # + BN affine and relu
-    return entry("occ_tail", "fbbev_tpu_torch/csrc/occ_tail.cu",
-                 "fbbev_tpu/ops/pallas_occ_tail.py:93", err, tol, ms,
-                 plain_ms, bound(nbytes, f32_flops=ops,
-                                 tc_flops=full * 64 * 19 * 2.0), None)
+    log(f"K8 bf16: {ms:.4f} ms per call, {gms:.4f} ms from a graph; plan "
+        f"{occ_plan_line(levels, w, True, 19)}")
+    out = entry("occ_tail", "fbbev_tpu_torch/csrc/occ_tail.cu",
+                "fbbev_tpu/ops/pallas_occ_tail.py:93", err, tol, ms,
+                plain_ms, bound(nbytes, f32_flops=ops,
+                                tc_flops=full * 64 * 19 * 2.0), None)
+    out.update(graph_ms=gms)
+    return out
+
+
+def occ_plan_line(levels, w, tail, K=0):
+    """K8's / K9's tile plan at these inputs, for the log."""
+    from fbbev_tpu_torch.ops import pallas_occ_tail as K8
+    B, C = levels[0].shape[:2]
+    p = K8.plan_occ(B, C, *w.shape[2:], [tuple(lv.shape[2:])
+                                         for lv in levels], tail,
+                    levels[0].element_size(), K)
+    return (f"tile {p.TY}x{p.TX}, {p.CC} channels a chunk, {p.groups} "
+            f"group(s), {p.smem} B shared, grid {p.grid}")
+
+
+def occ_ptxas():
+    """The ``-Xptxas -v`` lines of ``occ_tail.cu``'s kernels."""
+    from fbbev_tpu_torch.ops import _cuda
+    with open(_cuda.build(["occ_tail"])["occ_tail"] + ".log") as f:
+        return ptxas_summary(f.read())
 
 
 def blend_ops(C):
@@ -645,15 +680,21 @@ def check_k9(dev):
         if not err <= tol:
             raise AssertionError(f"K9 differs from its plain version: {err}")
         del want
-    ms = cuda_time(lambda: K9.fuse_multiscale(levels, w), iters=10)
+    call = (lambda: K9.fuse_multiscale(levels, w))
+    ms = cuda_time(call, iters=10)
+    gms = graph_time(call)
     plain_ms = cuda_time(lambda: K9.fuse_multiscale_plain(levels, w),
                          iters=3, warmup=1)
     full = 200 * 200 * 16
     nbytes = (sum(lv.numel() for lv in levels) + w.numel()
               + full * 128) * 2
-    return entry("occ_fuse", "fbbev_tpu_torch/csrc/occ_tail.cu",
-                 "fbbev_tpu/ops/pallas_occ_fuse.py:80", err, tol, ms,
-                 plain_ms, bound(nbytes, f32_flops=blend_ops(128)), None)
+    log(f"K9 bf16: {ms:.4f} ms per call, {gms:.4f} ms from a graph; plan "
+        f"{occ_plan_line(levels, w, False)}")
+    out = entry("occ_fuse", "fbbev_tpu_torch/csrc/occ_tail.cu",
+                "fbbev_tpu/ops/pallas_occ_fuse.py:80", err, tol, ms,
+                plain_ms, bound(nbytes, f32_flops=blend_ops(128)), None)
+    out.update(graph_ms=gms)
+    return out
 
 
 def host_us(fn, n=200):
@@ -1249,7 +1290,7 @@ def profile_frames(pipe, imgs, frames, ours, label):
 
 # name fragments of the port's own kernels in a profile
 PORT_KERNELS = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
-                "fuse_warp_epi", "conv3d_", "split_sum", "occ_tail_kernel")
+                "fuse_warp_epi", "conv3d_", "split_sum", "occ_")
 
 
 def profile_images(dev):
@@ -1273,6 +1314,27 @@ def profile_default(dev, frames=5):
     pipe(imgs[0], True)
     profile_frames(pipe, imgs, frames, PORT_KERNELS,
                    "default {} cudnn.benchmark=False")
+
+
+def profile_occ(dev, frames=5):
+    """``--profile-occ``: the two streams that take K8 and K9 -- routed
+    (``ROUTED``, K8) and blend (``BLEND``, K9) -- timed and profiled as
+    :func:`profile` does.  It profiles whatever package sits beside this
+    script, so a copy of it beside an older tree's package compares the
+    two on one card."""
+    import torch
+    from fbbev_tpu_torch.models import FBOCC
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    imgs = profile_images(dev)
+    for label, routes in (("routed", ROUTED), ("blend", BLEND)):
+        model = FBOCC(dtype=torch.bfloat16, device=dev,
+                      generator=torch.Generator().manual_seed(0), **routes)
+        pipe = FixedRigPipeline(model, flagship_rig())
+        pipe(imgs[0], True)
+        profile_frames(pipe, imgs, frames, PORT_KERNELS,
+                       f"{label} {routes} cudnn.benchmark=False")
+        del pipe, model
+        torch.cuda.empty_cache()
 
 
 def profile(dev, frames=5):
@@ -1463,6 +1525,9 @@ def main():
     if "--profile-default" in sys.argv[1:]:
         profile_default(dev)
         return 0
+    if "--profile-occ" in sys.argv[1:]:
+        profile_occ(dev)
+        return 0
     if "--k1" in sys.argv[1:]:
         # K1 alone, for iterating on it: both variants and K5, which
         # shares the no-epilogue kernel
@@ -1470,6 +1535,13 @@ def main():
         check_k1(dev, epilogue=False)
         check_k5(dev)
         log(f"chip_smoke --k1: {time.perf_counter() - T0:.1f} s")
+        return 0
+    if "--occ" in sys.argv[1:]:
+        # K9 and K8 alone, for iterating on them
+        log(f"occ_tail.cu ptxas: {occ_ptxas()}")
+        check_k9(dev)
+        check_k8(dev)
+        log(f"chip_smoke --occ: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--k6-plans" in sys.argv[1:]:
         k6_plans(dev)

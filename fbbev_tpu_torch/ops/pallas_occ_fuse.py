@@ -12,11 +12,18 @@ up(levels[i]) * w[:, i]``, in the levels' type.  The rounding follows the
 JAX path: Y upsampled first (outside the TPU kernel), then Z and X (inside
 it), every op rounded to the levels' type.
 
-CUDA kernel: the blend mode of K8's ``csrc/occ_tail.cu`` -- one thread per
-output voxel over all channels, writing the blend in the port's
-``(B, C, Y, X, Z)`` layout, coalesced along z.  Bound on the card: bytes
-(levels and weights read once, the 128-channel blend written once), about
-0.11 ms on an H100 SXM at the flagship.
+CUDA kernel: the blend mode of K8's ``csrc/occ_tail.cu``, planned by
+``pallas_occ_tail.plan_occ``: tiles of 8 x 16 output columns with the
+whole Z, 8 channels a chunk, the channels split into groups until there
+are 1024 tiles; persistent blocks of 256 threads.  Each coarse level's
+clamped neighbourhood is copied to shared memory once a chunk
+(``cp.async``, one chunk ahead) and upsampled separably -- Y, then Z at
+coarse resolution, X into registers -- in bf16 pairs with one rounding
+per op, so the result is the plain version's bit for bit; level 0 is
+read from global memory, and a thread blends and stores 8 z values of a
+column with 16-byte loads and stores.  Bound on the card: bytes (levels
+and weights read once, the 128-channel blend written once), about 0.11
+ms on an H100 SXM at the flagship.
 
 The plain version is ``_fuse_levels``' XLA expression (``occ_head.py:
 211-216``: upsample, then one weighted sum) taken in the TPU kernel's

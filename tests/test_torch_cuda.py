@@ -362,50 +362,127 @@ def test_k10_kernel_matches_plain(dev, dtype):
     assert torch.equal(drop_in, got)
 
 
-def _occ_levels(g, dev, dtype, C, Y=16, X=24, Z=16, factors=(1, 2, 4, 8)):
-    levels = [torch.randn(1, C, Y // f, X // f, Z // f, generator=g).to(
-        dev, dtype) for f in factors]
-    w = torch.softmax(torch.randn(1, len(factors), Y, X, Z, generator=g),
+def _occ_levels(g, dev, dtype, C, Y=16, X=24, Z=16, factors=(1, 2, 4, 8),
+                B=1):
+    """Levels (B, C, Y/fy, X/fx, Z/fz) -- a factor an int for all three
+    axes or a (fy, fx, fz) tuple -- and softmax blend weights."""
+    fs = [f if isinstance(f, tuple) else (f, f, f) for f in factors]
+    levels = [torch.randn(B, C, Y // fy, X // fx, Z // fz, generator=g).to(
+        dev, dtype) for fy, fx, fz in fs]
+    w = torch.softmax(torch.randn(B, len(fs), Y, X, Z, generator=g),
                       1).to(dev, dtype)
     return levels, w
 
 
+# (B, Y, X, factors, C): the flagship's factors; two samples; 1-3 levels; a
+# tile-ragged Y x X; levels of factor 1 on one axis only (and on two)
+OCC_CASES = {"flagship": (1, 16, 24, (1, 2, 4, 8)),
+             "two_samples": (2, 16, 24, (1, 2, 4, 8)),
+             "one_level": (1, 16, 24, (1,)),
+             "two_levels": (1, 16, 24, (1, 4)),
+             "three_levels": (1, 16, 24, (1, 2, 8)),
+             "ragged": (2, 20, 28, (1, 2, 4)),
+             "mixed_factors": (1, 20, 28, (1, (2, 1, 4), (1, 4, 2),
+                                           (4, 2, 1))),
+             "coarse_only": (1, 16, 24, ((2, 2, 2), (8, 8, 8)))}
+
+
+@pytest.mark.parametrize("case", sorted(OCC_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k8_kernel_matches_plain(dev, dtype):
-    """K8 vs its plain version, factors 1/2/4/8 as at the flagship.  The
-    lerps, the blend and the affine round at the same points in both, so
-    they agree exactly; the class product sums exact products in f32 in
-    another order: logits within one rounding of the type (2^-7 of
-    max(1, |logit|) in bf16, 1e-5 in f32), labels on >= 99.5% of voxels
-    (near-ties)."""
-    g = torch.Generator(device="cpu").manual_seed(7)
+def test_k8_kernel_matches_plain(dev, dtype, case):
+    """K8 vs its plain version.  The lerps, the blend and the affine round
+    at the same points in both, so they agree exactly; the class product
+    sums exact products in f32 in another order: logits within one
+    rounding of the type (2^-7 of max(1, |logit|) in bf16, 1e-5 in f32),
+    labels on >= 99.5% of voxels (near-ties).  The labels-only launch
+    gives the logits launch's labels.  K = 19 as the model; K = 8 and 32
+    at the flagship's factors."""
+    B, Y, X, factors = OCC_CASES[case]
+    for K in ((19, 8, 32) if case == "flagship" else (19,)):
+        g = torch.Generator(device="cpu").manual_seed(7)
+        levels, w = _occ_levels(g, dev, dtype, 32, Y, X, 16, factors, B)
+        a = (torch.rand(32, generator=g) + 0.5).to(dev)
+        b = torch.randn(32, generator=g).to(dev)
+        k2 = torch.randn(32, K, generator=g).to(dev)
+        before = K8.launches
+        lab, lg = K8.occ_tail(levels, w, a, b, k2, return_logits=True)
+        assert K8.launches == before + 1
+        wlab, wlg = K8.occ_tail_plain(levels, w, a, b, k2,
+                                      return_logits=True)
+        assert lab.dtype == torch.int64 and lab.shape == (B, Y, X, 16)
+        assert lg.shape == (B, Y, X, 16, K)
+        tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        d = (lg.float() - wlg.float()).abs() / \
+            wlg.float().abs().clamp(min=1.0)
+        assert d.max().item() <= tol, (K, d.max().item())
+        assert (lab == wlab).float().mean().item() >= 0.995, K
+        assert torch.equal(K8.occ_tail(levels, w, a, b, k2), lab)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_padded_classes_never_win(dev, dtype):
+    """Every logit negative (relu(h) >= 0 against negative class weights):
+    the zero logits of the classes the kernel pads K = 19 to 24 with
+    would beat every real one if they took part in the argmax."""
+    g = torch.Generator(device="cpu").manual_seed(9)
     levels, w = _occ_levels(g, dev, dtype, 32)
     a = (torch.rand(32, generator=g) + 0.5).to(dev)
-    b = torch.randn(32, generator=g).to(dev)
-    k2 = torch.randn(32, 19, generator=g).to(dev)
-    before = K8.launches
+    b = (torch.rand(32, generator=g) + 0.5).to(dev)     # h > 0
+    k2 = -(torch.rand(32, 19, generator=g) + 0.1).to(dev)
     lab, lg = K8.occ_tail(levels, w, a, b, k2, return_logits=True)
-    assert K8.launches == before + 1
-    wlab, wlg = K8.occ_tail_plain(levels, w, a, b, k2, return_logits=True)
-    assert lab.dtype == torch.int64 and lab.shape == (1, 16, 24, 16)
-    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    d = (lg.float() - wlg.float()).abs() / wlg.float().abs().clamp(min=1.0)
-    assert d.max().item() <= tol
+    wlab = K8.occ_tail_plain(levels, w, a, b, k2)
+    assert lg.float().max().item() < 0
+    assert lab.max().item() < 19
     assert (lab == wlab).float().mean().item() >= 0.995
 
 
+@pytest.mark.parametrize("case", sorted(OCC_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k9_kernel_matches_plain(dev, dtype):
+def test_k9_kernel_matches_plain(dev, dtype, case):
     """K9 vs its plain version: the same rounded ops in the same order,
     so equal."""
+    B, Y, X, factors = OCC_CASES[case]
     g = torch.Generator(device="cpu").manual_seed(8)
-    levels, w = _occ_levels(g, dev, dtype, 128)
+    levels, w = _occ_levels(g, dev, dtype, 128, Y, X, 16, factors, B)
     before = K9.launches
     got = K9.fuse_multiscale(levels, w)
     assert K9.launches == before + 1
     want = K9.fuse_multiscale_plain(levels, w)
-    assert got.shape == (1, 128, 16, 24, 16) and got.dtype == dtype
+    assert got.shape == (B, 128, Y, X, 16) and got.dtype == dtype
     assert torch.equal(got, want)
+
+
+def test_occ_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    """More than 4 levels, K > 32, a factor that does not divide, mixed
+    types, and shared memory past the card's: ValueError, no launch."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    levels, w = _occ_levels(g, dev, torch.bfloat16, 16)
+    a, b = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    k2 = torch.randn(16, 19, device=dev)
+    before = (K8.launches, K9.launches)
+    five = levels + levels[-1:]
+    w5 = torch.softmax(torch.randn(1, 5, 16, 24, 16, device=dev), 1).to(
+        torch.bfloat16)
+    bad = [
+        lambda: K9.fuse_multiscale(five, w5),
+        lambda: K8.occ_tail(five, w5, a, b, k2),
+        lambda: K8.occ_tail(levels, w, a, b, torch.randn(16, 33,
+                                                         device=dev)),
+        lambda: K9.fuse_multiscale(
+            [levels[0], torch.randn(1, 16, 5, 12, 8, device=dev).to(
+                torch.bfloat16)], w[:, :2].contiguous()),
+        lambda: K9.fuse_multiscale([levels[0], levels[1].float()],
+                                   w[:, :2].contiguous()),
+        lambda: K9.fuse_multiscale(levels, w.float()),
+        # Z = 2048 at 16 x 16: one tile row of 256 threads' 8 z values
+        # per column and four coarse levels' buffers pass 227 KB
+        lambda: K9.fuse_multiscale(*_occ_levels(g, dev, torch.float32, 4,
+                                                16, 16, 2048)),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert (K8.launches, K9.launches) == before
 
 
 def test_small_train_steps_on_card(dev):
