@@ -31,9 +31,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ms per step and peak device memory.
 8. Holds K5 (the age-ordered history warp), K6 (the 3x3x3 conv), K8 (the
    occ tail) and K9 (the occ blend) against their plain versions at the
-   flagship shapes, bf16 and f32 (K8 also its labels-only launch against
-   its logits launch), and times kernel, plain version and library call
-   (K6, K8 and K9 also from a CUDA graph).  Runs two more full-width
+   flagship shapes, bf16 and f32 (K5 also bit for bit against K1's
+   one-slot plain warp; K8 also its labels-only launch against its logits
+   launch), and times kernel, plain version and library call (K5, K6, K8
+   and K9 also from a CUDA graph).  Runs two more full-width
    streams with the model's route arguments: ``fuse_warp=False,
    pallas_conv3d=True, occ_tail=True``
    (6 frames: K2, K3 twice, K5, K6 sixteen times and K8 per frame, no K1)
@@ -55,8 +56,11 @@ the default configuration alone; ``--profile-occ`` the routed and blend
 streams, those that take K8 and K9 (copied beside an older tree's
 package, it profiles that package).  ``--k6-plans`` and ``--k7-plans`` time
 every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
-``--k1`` builds the kernels, holds K1 (both variants) and K5 against
-their plain versions at the flagship, times them and exits; ``--occ``
+``--k1`` builds the kernels, prints the ``-Xptxas -v`` lines of
+``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
+plain versions at the flagship (K5 also bit for bit against K1's one-slot
+plain warp), times them and every K5 plan and exits; ``--msda`` does the
+same for K3, K4 and K10 (``msda.cu``); ``--occ``
 does the same for K9 and K8 (bf16 and f32; timed per call and from a
 CUDA graph, with their tile plans) after printing the ``-Xptxas -v``
 lines of ``occ_tail.cu``'s kernels (registers, spills).
@@ -260,16 +264,25 @@ def check_k3(dev, name, B, HW, hw, Q, P):
     want = K3.deformable_sample_attend_plain(value, hw, loc, attn)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    ms = cuda_time(lambda: K3.deformable_sample_attend(value, hw, loc, attn))
+    call = (lambda: K3.deformable_sample_attend(value, hw, loc, attn))
+    ms = cuda_time(call, iters=50)
+    gms = graph_time(call, reps=20)
     plain_ms = cuda_time(lambda: K3.deformable_sample_attend_plain(
         value, hw, loc, attn))
     nbytes = value.numel() * 2 + (loc.numel() + attn.numel()
                                   + got.numel()) * 4
-    return entry(name, "fbbev_tpu_torch/csrc/msda.cu",
-                 "fbbev_tpu/ops/pallas_sample.py:165" if name == "msda"
-                 else "fbbev_tpu/ops/pallas_selfattn.py:198", err, 1e-4,
-                 ms, plain_ms, bound(nbytes, f32_flops=got.numel() * P * 4
-                                     * 2.0), None)
+    plan = K3.plan_msda(B, HW, 8, 10, Q, P, value.dtype,
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
+    log(f"{name} (B {B}, map {hw}, Q {Q}, P {P}): {ms:.4f} ms per call, "
+        f"{gms:.4f} ms from a graph; plan {plan._asdict()}")
+    out = entry(name, "fbbev_tpu_torch/csrc/msda.cu",
+                "fbbev_tpu/ops/pallas_sample.py:165" if name == "msda"
+                else "fbbev_tpu/ops/pallas_selfattn.py:198", err, 1e-4,
+                ms, plain_ms, bound(nbytes, f32_flops=got.numel() * P * 4
+                                    * 2.0), None)
+    out.update(graph_ms=gms)
+    return out
 
 
 def check_k1(dev, epilogue=True):
@@ -401,23 +414,55 @@ def flagship_flow_matrix(dev):
     return geometry.flow_matrix_from_grid_args(eye, eye, c2p, f2b)
 
 
-def check_k5(dev):
+def one_slot_warp(vol, mat):
+    """K1's plain warp stage run as one slot: ``fuse_warp_plain`` with T =
+    1, ``curr`` zeros, no sequence start and no slot overwritten -- the
+    operations K5's kernel does, in the same order."""
+    import torch
+    from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
+    B, Z, Y, X, C = vol.shape
+    curr = torch.zeros(B, Y, X, Z, C, dtype=vol.dtype, device=vol.device)
+    start = torch.zeros(B, device=vol.device)
+    hsel = torch.full((B,), -1, device=vol.device)
+    return K1.fuse_warp_plain(vol, curr, mat, start, hsel)[0]
+
+
+def rotation_flow_matrix(dev, theta=0.5, shift=7.0):
+    """A (1, 4, 4) index-unit flow rotating the 100x100 grid by ``theta``
+    rad about its centre and shifting it by ``shift`` cells: enough to
+    send the tiles far from the centre to K5's fallback."""
+    import torch
+    c, s = np.cos(theta), np.sin(theta)
+    m = np.eye(4, dtype=np.float32)
+    m[0, :2], m[1, :2] = (c, -s), (s, c)
+    m[0, 3] = 49.5 - c * 49.5 + s * 49.5 + shift
+    m[1, 3] = 49.5 - s * 49.5 - c * 49.5
+    return torch.from_numpy(m[None]).to(dev)
+
+
+def check_k5(dev, sweep=False):
     """K5 at the flagship: the age-ordered history (1,8,100,100,1280) bf16
-    warped by flow(1) into (1,100,100,8,1280); f32 at 256 channels.
-    Tolerance: the kernel rounds each tent weight to the history type as
-    the TPU kernel does, the plain version (``grid_sample_3d``) keeps it
+    warped by flow(1) into (1,100,100,8,1280); f32 at 256 channels.  The
+    kernel must equal K1's plain warp stage run as one slot bit for bit
+    (``one_slot_warp``), under flow(1) and under a 0.5 rad rotation that
+    sends tiles to the fallback.  Against ``warp_affine_3d_plain``
+    (``grid_sample_3d``), tolerance: the kernel rounds each tent weight to
+    the history type as the TPU kernel does, the plain version keeps it
     f32, both round the sum once: 2^-7 of the largest |history| in bf16;
     1e-3 in f32 (the kernel takes source coordinates in index units, the
     plain version through the [-1, 1] grid: f32 rounding moves a
     coordinate by ~1e-5 cells at 100 cells, times field slopes of up to
-    ~10 per cell on random data).  Library:
-    one 5-D ``F.grid_sample`` on the same history and the flow's grid."""
+    ~10 per cell on random data).  Library: one 5-D ``F.grid_sample`` on
+    the same history and the flow's grid.  Times per call and from a CUDA
+    graph; with ``sweep`` every plan of ``WARP_PLANS``, each output equal
+    to the default plan's."""
     import torch
     import torch.nn.functional as F
     from fbbev_tpu_torch import geometry
     from fbbev_tpu_torch.ops import pallas_warp as K5
     g = torch.Generator().manual_seed(10)
     mat = flagship_flow_matrix(dev)
+    rot = rotation_flow_matrix(dev)
     for dt, C in ((torch.float32, 256), (torch.bfloat16, 1280)):
         vol = torch.randn(1, 8, 100, 100, C, generator=g).to(dev, dt)
         got = K5.warp_affine_3d(vol, mat)
@@ -426,22 +471,43 @@ def check_k5(dev):
         err = (got.float() - want.float()).abs().max().item()
         tol = (1e-3 if dt == torch.float32 else
                2.0 ** -7 * vol.float().abs().max().item())
+        del want
+        exact = [torch.equal(got, one_slot_warp(vol, mat)),
+                 torch.equal(K5.warp_affine_3d(vol, rot),
+                             one_slot_warp(vol, rot))]
         log(f"K5 {str(dt)[6:]} (1,8,100,100,{C}): max_abs_err {err:.3e} "
-            f"(tol {tol:.1e})")
+            f"(tol {tol:.1e}); equal to the one-slot plain warp under "
+            f"flow(1) {exact[0]}, under the 0.5 rad rotation {exact[1]}")
         if not err <= tol:
             raise AssertionError(f"K5 differs from its plain version: {err}")
+        if not all(exact):
+            raise AssertionError("K5 differs from the one-slot plain warp")
     grid = geometry.flow_grid(mat, (8, 100, 100)).to(vol.dtype)
     volc = vol.permute(0, 4, 1, 2, 3)                  # (N, C, D, H, W)
-    ms = cuda_time(lambda: K5.warp_affine_3d(vol, mat), iters=10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = K5.WARP_PLANS if sweep else K5.WARP_PLANS[:1]
+    for p in plans:
+        out = K5.warp_affine_3d(vol, mat, plan=p)
+        if not torch.equal(out, got):
+            raise AssertionError(f"K5 plan {p} differs from the default's")
+        call = (lambda: K5.warp_affine_3d(vol, mat, plan=p))
+        pms, pgms = cuda_time(call, iters=20), graph_time(call)
+        plan = K5.plan_warp(1, 8, 100, 100, 1280, vol.dtype, sms, p)
+        log(f"K5 plan {plan._asdict()}: {pms:.4f} ms per call, {pgms:.4f} "
+            f"ms from a graph")
+        if p == K5.WARP_PLANS[0]:
+            ms, gms = pms, pgms
     plain_ms = cuda_time(lambda: K5.warp_affine_3d_plain(vol, mat), iters=3,
                          warmup=1)
     library_ms = cuda_time(lambda: F.grid_sample(
         volc, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), iters=10)
     nbytes = 2 * vol.numel() * 2
-    return entry("warp_affine", "fbbev_tpu_torch/csrc/fuse_warp.cu",
-                 "fbbev_tpu/ops/pallas_warp.py:190", err, tol, ms, plain_ms,
-                 bound(nbytes, f32_flops=2.0 * 8 * vol.numel()), library_ms)
+    out = entry("warp_affine", "fbbev_tpu_torch/csrc/fuse_warp.cu",
+                "fbbev_tpu/ops/pallas_warp.py:190", err, tol, ms, plain_ms,
+                bound(nbytes, f32_flops=2.0 * 8 * vol.numel()), library_ms)
+    out.update(graph_ms=gms)
+    return out
 
 
 # K6's convs in one flagship frame: (count, Y, X, Z, Cin, Cout) of the 3D
@@ -641,10 +707,10 @@ def occ_plan_line(levels, w, tail, K=0):
             f"group(s), {p.smem} B shared, grid {p.grid}")
 
 
-def occ_ptxas():
-    """The ``-Xptxas -v`` lines of ``occ_tail.cu``'s kernels."""
+def lib_ptxas(name):
+    """The ``-Xptxas -v`` lines of the kernels of ``csrc/<name>.cu``."""
     from fbbev_tpu_torch.ops import _cuda
-    with open(_cuda.build(["occ_tail"])["occ_tail"] + ".log") as f:
+    with open(_cuda.build([name])[name] + ".log") as f:
         return ptxas_summary(f.read())
 
 
@@ -1290,7 +1356,8 @@ def profile_frames(pipe, imgs, frames, ours, label):
 
 # name fragments of the port's own kernels in a profile
 PORT_KERNELS = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
-                "fuse_warp_epi", "conv3d_", "split_sum", "occ_")
+                "fuse_warp_epi", "warp_box_kernel", "conv3d_", "split_sum",
+                "occ_")
 
 
 def profile_images(dev):
@@ -1475,21 +1542,23 @@ def kernel_name(mangled):
 
 
 def ptxas_summary(log_text):
-    """Registers and spills of each kernel from an ``nvcc -Xptxas -v``
-    log: ``name regs R spill S/L`` (S bytes of spill stores, L of spill
-    loads)."""
-    out, name, spill = [], None, "?"
+    """Registers, spills and stack of each kernel from an ``nvcc -Xptxas
+    -v`` log: ``name regs R spill S/L`` (S bytes of spill stores, L of
+    spill loads), `` stack F`` where it has an F-byte stack frame (local
+    memory)."""
+    out, name, spill, stack = [], None, "?", 0
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            name, spill = kernel_name(m.group(1)), "?"
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
+            name, spill, stack = kernel_name(m.group(1)), "?", 0
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m:
-            spill = f"{m.group(1)}/{m.group(2)}"
+            stack, spill = int(m.group(1)), f"{m.group(2)}/{m.group(3)}"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name} regs {m.group(1)} spill {spill}")
+            out.append(f"{name} regs {m.group(1)} spill {spill}"
+                       + (f" stack {stack}" if stack else ""))
     return " | ".join(out)
 
 
@@ -1529,16 +1598,25 @@ def main():
         profile_occ(dev)
         return 0
     if "--k1" in sys.argv[1:]:
-        # K1 alone, for iterating on it: both variants and K5, which
-        # shares the no-epilogue kernel
+        # K1 (both variants) and K5 alone, for iterating on them: their
+        # ptxas lines, then K5's plan sweep
+        log(f"fuse_warp.cu ptxas: {lib_ptxas('fuse_warp')}")
         check_k1(dev, epilogue=True)
         check_k1(dev, epilogue=False)
-        check_k5(dev)
+        check_k5(dev, sweep=True)
         log(f"chip_smoke --k1: {time.perf_counter() - T0:.1f} s")
+        return 0
+    if "--msda" in sys.argv[1:]:
+        # K3, K4 and K10 alone (msda.cu), after their ptxas lines
+        log(f"msda.cu ptxas: {lib_ptxas('msda')}")
+        check_k3(dev, "msda", 6, 16 * 44, (16, 44), 4096, 8)
+        check_k3(dev, "msda_selfattn", 1, 10000, (100, 100), 10000, 4)
+        check_k10(dev)
+        log(f"chip_smoke --msda: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--occ" in sys.argv[1:]:
         # K9 and K8 alone, for iterating on them
-        log(f"occ_tail.cu ptxas: {occ_ptxas()}")
+        log(f"occ_tail.cu ptxas: {lib_ptxas('occ_tail')}")
         check_k9(dev)
         check_k8(dev)
         log(f"chip_smoke --occ: {time.perf_counter() - T0:.1f} s")

@@ -19,19 +19,39 @@
 // gathers the corner rows directly and its caches hold the neighbours.
 //
 // K5 replaces fbbev_tpu/ops/pallas_warp.py::warp_affine_3d (_warp_kernel,
-// pl.pallas_call at :234, out_zyx=False): the warp stage alone (kRing
-// off), bf16 or f32, of a (B, Z, Y, X, C) volume into (B, Y, X, Z, C) --
-// no start reset, no new history, no epilogue.  It is launched as one
-// slot of C channels.
+// pl.pallas_call at :234, out_zyx=False): the warp stage alone, bf16 or
+// f32, of a (B, Z, Y, X, C) volume into (B, Y, X, Z, C) -- no start
+// reset, no new history, no epilogue.
 //
 // Bound: bytes -- the history is read once and the new history (K1) or
 // the warped volume (K5) written once (2 x 205 MB in bf16 at the
 // flagship); K1's epilogue, 49 GFLOP, sits below that on the tensor cores.
 //
-// Two kernels.  fuse_warp_kernel (K5, and K1 without the epilogue): 64
+// Three kernels.  fuse_warp_kernel (K1 without the epilogue): 64
 // consecutive voxels of one sample in (z, y, x) order a block, 4 warps,
 // warp w owns rows 16w..16w+15; each lane reads 16-byte channel vectors of
 // a corner row, so a warp reads 512 contiguous bytes of it.
+//
+// warp_box_kernel (K5) reads each source row about 2.4 times, in bulk
+// copies, where a gather reads it about 8 times (a row is a corner of ~8
+// output voxels).  Persistent blocks walk tasks: a tile of TY x TX output
+// columns over the whole Z crossed with a group of G 32-byte channel
+// chunks (16 bf16, 8 f32), the chunks of a group strided so that the
+// blocks sharing a tile read and write contiguous bytes together.  Per
+// task the block takes the tile's source box from the flow (the extremes
+// at its 8 corner voxels, one guard cell each way); if it fits (TY + 2M)
+// x (TX + 2M) x Z cells, thread 0 copies each chunk's box with one 5-D
+// TMA box into a ring of S shared-memory stages, S chunks ahead, and the
+// threads read the corners from there.  Two threads a voxel, one 16-byte
+// half of the chunk each: each keeps its voxels' 8 corner weights and box
+// cells in registers for the G chunks, issues its 8 reads together, free
+// of bank conflicts for neighbouring voxels, and stores whole 32-byte
+// sectors (a sector written in two halves by two instructions costs the
+// card a read-modify-write).  A tile whose box does not fit (a large
+// rotation or translation) reads the volume directly, in the same kernel:
+// the choice is made per tile on the device.  The plan (tile, margin,
+// stages, threads, group; the shared-memory bytes) is ops/pallas_warp.py::
+// plan_warp; the entry refuses a byte count other than the kernel's.
 //
 // fuse_warp_epi (K1 with the epilogue) puts the epilogue behind the
 // gather on Hopper's wgmma.  A block owns BM = 128 voxels in (z, y, x)
@@ -81,13 +101,13 @@ template <> struct Vec<bf16> {
   __device__ static float round(float w) {
     return __bfloat162float(__float2bfloat16_rn(w));
   }
+  // a bf16 is the top half of its f32: one shift or mask a channel
   __device__ static void unpack(uint4 q, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 v = __bfloat1622float2(h[j]);
-      f[2 * j] = v.x;
-      f[2 * j + 1] = v.y;
+      f[2 * j] = __uint_as_float(u[j] << 16);
+      f[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
     }
   }
   __device__ static uint4 pack(const float* f) {
@@ -125,8 +145,8 @@ struct Args {
   int Z, Y, X, C, T;
 };
 
-// kRing: K1's ring update; off, the warp alone (K5).
-template <typename T, bool kRing>
+// K1 without the epilogue: the warp, the start reset and the ring update.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
   constexpr int VN = Vec<T>::N;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -172,8 +192,8 @@ __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
   }
   __syncthreads();
 
-  const float s = kRing ? a.start[b] : 0.f;
-  const int hsel = kRing ? a.hsel[b] : -1;
+  const float s = a.start[b];
+  const int hsel = a.hsel[b];
   const int nvec = C / VN;  // 16-byte vectors per slot row
   for (int t = 0; t < T_; ++t) {
     const float mk = (t == hsel) ? 1.f : 0.f;
@@ -195,21 +215,19 @@ __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
       }
       const int x = v % X, y = (v / X) % Y, z = v / (X * Y);
       const int64_t vox = (((int64_t)b * Y + y) * X + x) * Z + z;
-      if (kRing) {
-        float cf[VN], hv[VN];
-        Vec<T>::unpack(*reinterpret_cast<const uint4*>(
-                           static_cast<const T*>(a.curr) + vox * C + cv * VN),
-                       cf);
+      float cf[VN], hv[VN];
+      Vec<T>::unpack(*reinterpret_cast<const uint4*>(
+                         static_cast<const T*>(a.curr) + vox * C + cv * VN),
+                     cf);
 #pragma unroll
-        for (int j = 0; j < VN; ++j) {
-          const float w0 = acc[j] * (1.f - s) + cf[j] * s;
-          hv[j] = w0 * (1.f - mk) + cf[j] * mk;
-          acc[j] = w0;
-        }
-        *reinterpret_cast<uint4*>(static_cast<T*>(a.new_hist) +
-                                  ((int64_t)b * V + v) * TC + t * C +
-                                  cv * VN) = Vec<T>::pack(hv);
+      for (int j = 0; j < VN; ++j) {
+        const float w0 = acc[j] * (1.f - s) + cf[j] * s;
+        hv[j] = w0 * (1.f - mk) + cf[j] * mk;
+        acc[j] = w0;
       }
+      *reinterpret_cast<uint4*>(static_cast<T*>(a.new_hist) +
+                                ((int64_t)b * V + v) * TC + t * C +
+                                cv * VN) = Vec<T>::pack(hv);
       *reinterpret_cast<uint4*>(static_cast<T*>(a.slots) + vox * TC +
                                 t * C + cv * VN) = Vec<T>::pack(acc);
     }
@@ -539,6 +557,348 @@ int launch_epi(const EpiArgs& a, const bf16* kc_t, const bf16* ws_t, int B,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ K5: the staged box
+constexpr int kCell = 32;     // bytes of a voxel's chunk: two 16-byte halves
+constexpr int kMaxBoxZ = 8;   // box depth cap; a deeper tile falls back
+
+struct BoxArgs {
+  const void* vol;   // (B, Z, Y, X, C)
+  const float* mat;  // (B, 12) rows 0..2 of the 4x4 flow
+  void* out;         // (B, Y, X, Z, C)
+  int B, Z, Y, X, C, BZ;
+};
+
+// A task: sample b, the tile's first output row y0 and column x0, and a
+// group of nc <= G channel chunks ch0, ch0 + dch, ...  Groups run
+// fastest, so a tile's dch groups are taken by neighbouring blocks at
+// about the same time, and at their g-th step they read and write chunks
+// g dch .. g dch + dch - 1 of the tile's rows: contiguous bytes.
+struct Task {
+  int b, y0, x0, ch0, dch, nc;
+};
+
+template <int TY, int TX, int G>
+__device__ __forceinline__ Task task_of(int t, const BoxArgs& a, int nch) {
+  const int tiles_x = (a.X + TX - 1) / TX, tiles_y = (a.Y + TY - 1) / TY;
+  const int groups = (nch + G - 1) / G;
+  Task k;
+  k.ch0 = t % groups;
+  k.dch = groups;
+  k.nc = (nch - k.ch0 + groups - 1) / groups;
+  t /= groups;
+  k.x0 = (t % tiles_x) * TX;
+  t /= tiles_x;
+  k.y0 = (t % tiles_y) * TY;
+  k.b = t / tiles_y;
+  return k;
+}
+
+// Source index coordinates of output voxel (gx, gy, gz): the f32
+// expressions of every warp of this file and of the plain version.
+__device__ __forceinline__ void src_of(const float* m, float gx, float gy,
+                                       float gz, float& xs, float& ys,
+                                       float& zs) {
+  xs = m[0] * gx + m[1] * gy + m[3] + m[2] * gz;
+  ys = m[4] * gx + m[5] * gy + m[7] + m[6] * gz;
+  zs = m[8] * gx + m[9] * gy + m[11] + m[10] * gz;
+}
+
+// The first cell lo of a box of `cells` along an axis of n cells that holds
+// every clamped corner coordinate of source coordinates in [mn, mx],
+// widened by one cell each way against the rounding between the tile's
+// corner voxels and its inner ones; fits is cleared if it does not.
+__device__ __forceinline__ int box_axis(float mn, float mx, int n, int cells,
+                                        bool& fits) {
+  const float top = (float)(n - 1);
+  const int lo = (int)fminf(fmaxf(floorf(mn) - 1.f, 0.f), top);
+  const int hi = (int)fminf(fmaxf(floorf(mx) + 2.f, 0.f), top);
+  fits = fits && hi - lo < cells;
+  return lo;
+}
+
+struct Box {
+  int x, y, z;
+  bool fits;
+};
+
+// The source box of task k: the flow is affine, so the extremes of the
+// source coordinates over the tile (all Z) are at its 8 corner voxels.
+// A volume deeper than kMaxBoxZ, or a flow whose terms may reach 2^16
+// cells (or is not finite), sends the tile to the fallback: below that, the f32 rounding of any voxel's
+// coordinates (a few ulps of 2^16, < 0.02 cells) stays inside the guard.
+template <int TY, int TX, int BY, int BX>
+__device__ __forceinline__ Box box_of(const Task& k, const float* m,
+                                      const BoxArgs& a) {
+  bool fits = a.Z <= kMaxBoxZ;  // a staged thread holds kMaxBoxZ levels
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    fits = fits && fabsf(m[4 * r]) * (a.X - 1) + fabsf(m[4 * r + 1]) *
+                                                     (a.Y - 1) +
+                           fabsf(m[4 * r + 2]) * (a.Z - 1) +
+                           fabsf(m[4 * r + 3]) <
+                       65536.f;
+  const float xa = (float)k.x0, xb = (float)(min(k.x0 + TX, a.X) - 1);
+  const float ya = (float)k.y0, yb = (float)(min(k.y0 + TY, a.Y) - 1);
+  const float inf = __int_as_float(0x7f800000);
+  float mn[3] = {inf, inf, inf}, mx[3] = {-inf, -inf, -inf};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float s[3];
+    src_of(m, (c & 1) ? xb : xa, (c & 2) ? yb : ya,
+           (c & 4) ? (float)(a.Z - 1) : 0.f, s[0], s[1], s[2]);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      mn[d] = fminf(mn[d], s[d]);
+      mx[d] = fmaxf(mx[d], s[d]);
+    }
+  }
+  Box r;
+  r.fits = fits;
+  r.x = box_axis(mn[0], mx[0], a.X, BX, r.fits);
+  r.y = box_axis(mn[1], mx[1], a.Y, BY, r.fits);
+  r.z = box_axis(mn[2], mx[2], a.Z, a.BZ, r.fits);
+  return r;
+}
+
+// The 8 trilinear corners of output voxel (x, y, z): weights rounded to T,
+// 0 outside the volume, and the clamped cell coordinates -- the f32
+// operations of the plain version, in its order.
+template <typename T>
+__device__ __forceinline__ void corners_of(const float* m, int x, int y,
+                                           int z, const BoxArgs& a,
+                                           float (&w)[8], int (&cx)[8],
+                                           int (&cy)[8], int (&cz)[8]) {
+  float xs, ys, zs;
+  src_of(m, (float)x, (float)y, (float)z, xs, ys, zs);
+  const float x0 = floorf(xs), y0 = floorf(ys), z0 = floorf(zs);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float ix = x0 + (c & 1), iy = y0 + ((c >> 1) & 1);
+    const float iz = z0 + (c >> 2);
+    const bool ok = ix >= 0.f && ix <= a.X - 1 && iy >= 0.f &&
+                    iy <= a.Y - 1 && iz >= 0.f && iz <= a.Z - 1;
+    const float wt = (1.f - fabsf(xs - ix)) * (1.f - fabsf(ys - iy)) *
+                     (1.f - fabsf(zs - iz));
+    w[c] = ok ? Vec<T>::round(wt) : 0.f;
+    cx[c] = (int)fminf(fmaxf(ix, 0.f), (float)(a.X - 1));
+    cy[c] = (int)fminf(fmaxf(iy, 0.f), (float)(a.Y - 1));
+    cz[c] = (int)fminf(fmaxf(iz, 0.f), (float)(a.Z - 1));
+  }
+}
+
+// One 16-byte half of a chunk (8 bf16 or 4 f32 channels): the weighted
+// sum of the 8 corner vectors q, corners in order, into f32, rounded to T.
+template <typename T>
+__device__ __forceinline__ uint4 blend8(const float (&w)[8],
+                                        const uint4 (&q)[8]) {
+  constexpr int VN = Vec<T>::N;
+  float acc[VN] = {};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float f[VN];
+    Vec<T>::unpack(q[c], f);
+#pragma unroll
+    for (int j = 0; j < VN; ++j) acc[j] += w[c] * f[j];
+  }
+  return Vec<T>::pack(acc);
+}
+
+// Chunk ch of every output voxel of tile k (x fastest, then y, then z),
+// its corners read directly from the volume: the fallback of a tile whose
+// box does not fit.  Thread pairs as the staged path's.
+template <typename T, int TY, int TX, int NT>
+__device__ __forceinline__ void warp_direct(const Task& k, int ch,
+                                            const float* m,
+                                            const BoxArgs& a) {
+  constexpr int VN = Vec<T>::N, CC = 2 * VN;
+  const T* vol = static_cast<const T*>(a.vol);
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 2 * TY * TX * a.Z; i += NT) {
+    const int h = i & 1, v = i >> 1;
+    const int x = k.x0 + v % TX, y = k.y0 + (v / TX) % TY;
+    const int z = v / (TX * TY);
+    if (x >= a.X || y >= a.Y) continue;
+    float w[8];
+    int cx[8], cy[8], cz[8];
+    corners_of<T>(m, x, y, z, a, w, cx, cy, cz);
+    uint4 q[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      q[c] = __ldg(reinterpret_cast<const uint4*>(
+          vol + ((((int64_t)k.b * a.Z + cz[c]) * a.Y + cy[c]) * a.X + cx[c]) *
+                    a.C +
+          ch * CC + h * VN));
+    *reinterpret_cast<uint4*>(
+        static_cast<T*>(a.out) +
+        ((((int64_t)k.b * a.Y + y) * a.X + x) * a.Z + z) * a.C + ch * CC +
+        h * VN) = blend8<T>(w, q);
+  }
+}
+
+// K5.  Persistent blocks walk tasks blockIdx.x, + gridDim.x, ...; a task
+// is G steps, one a chunk (a step past the group's chunks is empty).
+// Thread 0 stages each step's box through a ring of S stages, S steps
+// ahead: one 5-D TMA box (CC channels, BX, BY, BZ, 1) of the volume,
+// zero-filled past its edges, completing on the stage's mbarrier; an empty
+// step, or one of a task whose box does not fit, only arrives on it.  The
+// last __syncthreads of a step frees its stage.  In a staged task each
+// thread keeps its IPT items' corner weights and box cells in registers
+// for all G chunks: thread t takes half t & 1 of voxels (t >> 1) + i NT / 2.
+template <typename T, int TY, int TX, int M, int S, int NT, int G>
+__global__ void __launch_bounds__(NT, 1)
+    warp_box_kernel(const __grid_constant__ CUtensorMap vmap,
+                    const BoxArgs a) {
+  constexpr int BY = TY + 2 * M, BX = TX + 2 * M;
+  constexpr int VN = Vec<T>::N, CC = 2 * VN;
+  constexpr int IPT = 2 * TY * TX * kMaxBoxZ / NT;  // items a thread
+  static_assert(IPT * NT == 2 * TY * TX * kMaxBoxZ && NT % 64 == 0, "NT");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 127u) & ~127u;
+  uint8_t* const sm = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t stage_bytes = (uint32_t)a.BZ * BY * BX * kCell;
+  const uint32_t bars = base + S * stage_bytes;
+  const int nch = a.C / CC;
+  const int ntasks = a.B * ((a.Y + TY - 1) / TY) * ((a.X + TX - 1) / TX) *
+                     ((nch + G - 1) / G);
+  auto issue = [&](int n, int s) {  // step n of this block into stage s
+    const int t = blockIdx.x + (n / G) * gridDim.x, g = n % G;
+    if (t >= ntasks) return;
+    const Task k = task_of<TY, TX, G>(t, a, nch);
+    const float* m = a.mat + k.b * 12;
+    const Box box = box_of<TY, TX, BY, BX>(k, m, a);
+    const uint32_t bar = bars + 8 * s;
+    if (box.fits && g < k.nc) {
+      mbar_expect_tx(bar, stage_bytes);
+      tma_load_5d(base + s * stage_bytes, &vmap, bar,
+                  (k.ch0 + g * k.dch) * CC, box.x, box.y, box.z, k.b);
+    } else {
+      mbar_arrive(bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < S; ++s) issue(s, s);
+  }
+  __syncthreads();
+  const int h = threadIdx.x & 1;
+  int n = 0;  // this block's steps so far
+  for (int j = 0;; ++j) {
+    const int t = blockIdx.x + j * gridDim.x;
+    if (t >= ntasks) break;
+    const Task k = task_of<TY, TX, G>(t, a, nch);
+    float m[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) m[i] = __ldg(a.mat + k.b * 12 + i);
+    const Box box = box_of<TY, TX, BY, BX>(k, m, a);
+    if (box.fits) {
+      float w[IPT][8];
+      uint32_t cell[IPT][4];  // box cells of corners 2i, 2i + 1 (16 bits)
+      uint32_t row[IPT];      // output voxel (y, x, z) of sample b, or ~0
+#pragma unroll
+      for (int it = 0; it < IPT; ++it) {
+        const int v = (threadIdx.x >> 1) + it * (NT / 2);
+        const int x = k.x0 + v % TX, y = k.y0 + (v / TX) % TY;
+        const int z = v / (TX * TY);
+        const bool valid = x < a.X && y < a.Y && z < a.Z;
+        int cx[8], cy[8], cz[8];
+        corners_of<T>(m, min(x, a.X - 1), min(y, a.Y - 1), min(z, a.Z - 1),
+                      a, w[it], cx, cy, cz);
+#pragma unroll
+        for (int c = 0; c < 8; c += 2)
+          cell[it][c / 2] =
+              (uint32_t)(((cz[c] - box.z) * BY + (cy[c] - box.y)) * BX +
+                         (cx[c] - box.x)) |
+              (uint32_t)(((cz[c + 1] - box.z) * BY + (cy[c + 1] - box.y)) *
+                             BX +
+                         (cx[c + 1] - box.x))
+                  << 16;
+        row[it] = valid ? (uint32_t)((y * a.X + x) * a.Z + z) : ~0u;
+      }
+      for (int g = 0; g < G; ++g, ++n) {
+        const int s = n % S;
+        mbar_wait(bars + 8 * s, (n / S) & 1);
+        if (g < k.nc) {
+          const uint8_t* st = sm + s * stage_bytes + h * 16;
+          T* out = static_cast<T*>(a.out) +
+                   (int64_t)k.b * a.Y * a.X * a.Z * a.C +
+                   (k.ch0 + g * k.dch) * CC + h * VN;
+#pragma unroll
+          for (int it = 0; it < IPT; ++it) {
+            if (row[it] == ~0u) continue;
+            uint4 q[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              q[c] = *reinterpret_cast<const uint4*>(
+                  st + ((cell[it][c / 2] >> (16 * (c & 1))) & 0xffff) *
+                           kCell);
+            *reinterpret_cast<uint4*>(out + (int64_t)row[it] * a.C) =
+                blend8<T>(w[it], q);
+          }
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) issue(n + S, s);
+      }
+    } else {
+      for (int g = 0; g < G; ++g, ++n) {
+        const int s = n % S;
+        mbar_wait(bars + 8 * s, (n / S) & 1);
+        if (g < k.nc) warp_direct<T, TY, TX, NT>(k, k.ch0 + g * k.dch, m, a);
+        __syncthreads();
+        if (threadIdx.x == 0) issue(n + S, s);
+      }
+    }
+  }
+}
+
+// Shared-memory bytes of warp_box_kernel: S stages of BZ x BY x BX cells,
+// S mbarriers, 128 bytes of alignment slack.  ops/pallas_warp.py::
+// plan_warp mirrors it.
+template <int TY, int TX, int M, int S>
+int box_smem(int BZ) {
+  return S * BZ * (TY + 2 * M) * (TX + 2 * M) * kCell + 8 * S + 128;
+}
+
+template <typename T, int TY, int TX, int M, int S, int NT, int G>
+int launch_box(const BoxArgs& a, int grid, int smem, cudaStream_t stream) {
+  constexpr int BY = TY + 2 * M, BX = TX + 2 * M;
+  constexpr int CC = 2 * Vec<T>::N;
+  if (smem != box_smem<TY, TX, M, S>(a.BZ)) return (int)cudaErrorInvalidValue;
+  CUtensorMap vm;
+  const cuuint64_t d[5] = {(cuuint64_t)a.C, (cuuint64_t)a.X,
+                           (cuuint64_t)a.Y, (cuuint64_t)a.Z,
+                           (cuuint64_t)a.B};
+  const cuuint32_t bx[5] = {(cuuint32_t)CC, (cuuint32_t)BX, (cuuint32_t)BY,
+                            (cuuint32_t)a.BZ, 1};
+  int r = encode(&vm, a.vol, 5, d, bx,
+                 sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (r != 0) return r;
+  static uint64_t smem_set = 0;  // set once, for the deepest box
+  r = allow_smem(warp_box_kernel<T, TY, TX, M, S, NT, G>,
+                 box_smem<TY, TX, M, S>(kMaxBoxZ), smem_set);
+  if (r != 0) return r;
+  warp_box_kernel<T, TY, TX, M, S, NT, G><<<grid, NT, smem, stream>>>(vm, a);
+  return (int)cudaGetLastError();
+}
+
+// The plans K5 is instantiated for, (TY, TX, M, S, NT, G) -- ops/
+// pallas_warp.py::WARP_PLANS lists the same, the first the default.
+template <typename T>
+int launch_plan(const BoxArgs& a, const int* p, int grid, int smem,
+                cudaStream_t st) {
+#define FBBEV_K5_PLAN(TY_, TX_, M_, S_, NT_, G_)                           \
+  if (p[0] == TY_ && p[1] == TX_ && p[2] == M_ && p[3] == S_ &&          \
+      p[4] == NT_ && p[5] == G_)                                         \
+    return launch_box<T, TY_, TX_, M_, S_, NT_, G_>(a, grid, smem, st);
+  FBBEV_K5_PLAN(4, 20, 2, 4, 640, 4)
+  FBBEV_K5_PLAN(8, 16, 2, 3, 512, 2)
+  FBBEV_K5_PLAN(4, 20, 2, 4, 640, 8)
+#undef FBBEV_K5_PLAN
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // K1 without the epilogue: the warped slots (B, Y, X, Z, T*C) and the new
@@ -554,7 +914,7 @@ extern "C" int fbbev_fuse_warp(const void* hist, const void* curr,
   const int V = Z * Y * X;
   if (B == 0 || V == 0 || T == 0) return 0;
   const dim3 grid((V + kRows - 1) / kRows, B);
-  fuse_warp_kernel<bf16, true>
+  fuse_warp_kernel<bf16>
       <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -591,22 +951,29 @@ extern "C" int fbbev_fuse_warp_epi(const void* hist, const void* curr,
   return (int)cudaErrorInvalidValue;
 }
 
-// K5: vol (B, Z, Y, X, C) -> out (B, Y, X, Z, C), bf16 (is_bf16) or f32;
-// C a multiple of 8.
+// K5: vol (B, Z, Y, X, C) -> out (B, Y, X, Z, C), bf16 (is_bf16) or f32,
+// C a multiple of the 32-byte chunk (16 bf16, 8 f32 channels), vol and out
+// 16-byte aligned; (ty, tx, margin, stages, threads, group) one of the
+// instantiated plans, grid its persistent blocks and smem its bytes, which
+// the entry refuses if they differ from the kernel's.
 extern "C" int fbbev_warp_affine(const void* vol, const float* mat,
                                  void* out, int is_bf16, int B, int Z, int Y,
-                                 int X, int C, void* stream) {
-  if (C % 8 || B < 0 || Z < 0 || Y < 0 || X < 0)
+                                 int X, int C, int ty, int tx, int margin,
+                                 int stages, int threads, int group,
+                                 int grid, int smem, void* stream) {
+  const int cc = is_bf16 ? 16 : 8;
+  if (C % cc || B < 0 || Z < 0 || Y < 0 || X < 0 ||
+      ((uintptr_t)vol | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
-  Args a{vol, nullptr, mat, nullptr, nullptr, nullptr, out, Z, Y, X, C, 1};
-  const int V = Z * Y * X;
-  if (B == 0 || V == 0 || C == 0) return 0;
-  const dim3 grid((V + kRows - 1) / kRows, B);
-  if (is_bf16)
-    fuse_warp_kernel<bf16, false>
-        <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
-  else
-    fuse_warp_kernel<float, false>
-        <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (B == 0 || Z == 0 || Y == 0 || X == 0 || C == 0) return 0;
+  if (ty <= 0 || tx <= 0 || group <= 0 || grid <= 0 ||
+      (int64_t)B * ((Y + ty - 1) / ty) * ((X + tx - 1) / tx) * (C / cc) >=
+          INT32_MAX ||
+      (int64_t)Y * X * Z >= INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const BoxArgs a{vol, mat, out, B, Z, Y, X, C, min(Z, kMaxBoxZ)};
+  const int p[6] = {ty, tx, margin, stages, threads, group};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16) return launch_plan<bf16>(a, p, grid, smem, st);
+  return launch_plan<float>(a, p, grid, smem, st);
 }

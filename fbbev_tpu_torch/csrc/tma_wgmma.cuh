@@ -1,6 +1,7 @@
 // Hopper building blocks of the implicit-GEMM convolutions, shared by
-// conv3d.cu (K6, 3x3x3) and conv3x3.cu (K7, 3x3), and by K1's epilogue
-// (fuse_warp.cu): TMA tile loads into a ring of shared-memory stages
+// conv3d.cu (K6, 3x3x3) and conv3x3.cu (K7, 3x3), by K1's epilogue and
+// K5's staged box (fuse_warp.cu) and by K3's staged map (msda.cu, one
+// 1-D bulk copy): TMA tile loads into a ring of shared-memory stages
 // guarded by full / empty mbarriers, wgmma m64n{64,80,128,160,256}k16
 // products on K-major bf16 tiles in the 128-byte swizzle, the masked
 // channels-last epilogue, the ordered split-K sum and the tensor-map
@@ -78,6 +79,17 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* m,
       "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// One contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -511,20 +523,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-byte tensor of `rank` dims (innermost first), dense, 128-byte
-// swizzle; TMA fills what a box reads outside it with zeros.
+// A tensor of `rank` dims (innermost first), dense, of bf16 in the
+// 128-byte swizzle unless told otherwise (K5 reads f32 or bf16 boxes
+// unswizzled); TMA fills what a box reads outside it with zeros.
 int encode(CUtensorMap* m, const void* ptr, int rank, const cuuint64_t* dims,
-           const cuuint32_t* box) {
+           const cuuint32_t* box,
+           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
   cuuint64_t strides[4];
-  cuuint64_t s = 2;
+  cuuint64_t s = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(ptr), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(m, type, rank, const_cast<void*>(ptr), dims, strides,
+                        box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;  // 1000 + CUresult

@@ -63,6 +63,37 @@ def test_k3_kernel_matches_plain(dev, dtype):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# (name, B, (H, W), Q, P, selfattn, staged): the cross-attention's camera
+# maps (staged in shared memory), a self-attention map too large to stage
+# (rows from global memory), and a ragged staged case
+K3_CASES = [("cross", 6, (16, 44), 300, 8, False, True),
+            ("selfattn", 1, (40, 40), 1600, 4, True, False),
+            ("ragged", 3, (7, 9), 77, 4, False, True)]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in K3_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_staged_and_global_rows_match_plain(dev, dtype, case):
+    """K3 and K4 (the self-attention's call) within 1e-4 of the plain
+    version, with the map staged in shared memory and with its rows read
+    from global memory; each call counts one launch on its own counter."""
+    _, B, hw, Q, P, selfattn, staged = next(c for c in K3_CASES
+                                            if c[0] == case)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    H, W = hw
+    v = torch.randn(B, H * W, 8, 10, generator=g).to(dev, dtype)
+    loc = (torch.rand(B, Q, 8, P, 2, generator=g) * 1.2 - 0.1).to(dev)
+    attn = torch.softmax(torch.randn(B, Q, 8, P, generator=g), -1).to(dev)
+    assert K3.plan_msda(B, H * W, 8, 10, Q, P, dtype).staged == staged
+    before = (K3.launches, K3.selfattn_launches)
+    got = K3.deformable_sample_attend(v, hw, loc, attn, selfattn=selfattn)
+    after = (K3.launches, K3.selfattn_launches)
+    assert after == ((before[0], before[1] + 1) if selfattn
+                     else (before[0] + 1, before[1]))
+    want = K3.deformable_sample_attend_plain(v, hw, loc, attn)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 # (B, T, start, hsel): one sample; two samples of 16 slots, one of them a
 # sequence start, the overwritten slot at 0 and at T - 1 (each with V =
 # 8 * 20 * 30, not a multiple of the epilogue kernel's 128-voxel tile)
@@ -285,6 +316,40 @@ def test_k5_kernel_matches_plain(dev, dtype):
     tol = 1e-4 if dtype == torch.float32 else \
         2.0 ** -7 * vol.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _rigid(theta, tx, ty, n):
+    """Rotation by ``theta`` rad about the centre of an n x n grid, then a
+    shift of (tx, ty) cells, as a (1, 4, 4) index-unit flow."""
+    c, s, h = np.cos(theta), np.sin(theta), (n - 1) / 2
+    m = np.eye(4, dtype=np.float32)
+    m[0, :2], m[1, :2] = (c, -s), (s, c)
+    m[0, 3] = h - c * h + s * h + tx
+    m[1, 3] = h - s * h - c * h + ty
+    m[2, 0] = 0.01
+    return torch.from_numpy(m[None])
+
+
+@pytest.mark.parametrize("plan", K5.WARP_PLANS)
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 256),
+                                     (torch.bfloat16, 1280)])
+def test_k5_kernel_is_the_one_slot_plain_warp(dev, dtype, C, plan):
+    """K5 bit for bit K1's plain warp stage run as one slot (T = 1, curr
+    zeros, no start, no slot overwritten), every plan, two samples: a small
+    motion (every tile staged) and a 0.5 rad rotation with a 7-cell shift
+    (inner tiles take the fallback, edge tiles are staged); one launch."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    B, Z, Y, X = 2, 8, 40, 44
+    vol = torch.randn(B, Z, Y, X, C, generator=g).to(dev, dtype)
+    mat = torch.cat([_rigid(0.02, 1.5, -2.0, 40),
+                     _rigid(0.5, 7.0, 0.0, 40)]).to(dev)
+    before = K5.launches
+    got = K5.warp_affine_3d(vol, mat, plan=plan)
+    assert K5.launches == before + 1
+    curr = torch.zeros(B, Y, X, Z, C, dtype=dtype, device=dev)
+    want = K1.fuse_warp_plain(vol, curr, mat, torch.zeros(B, device=dev),
+                              torch.full((B,), -1, device=dev))[0]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
