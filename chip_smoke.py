@@ -7,9 +7,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 2. Builds every kernel of the serving path from ``fbbev_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel).
 3. Holds each kernel against its plain PyTorch version at the flagship
-   shapes (numpy-seeded inputs; K3 also at the BEV self-attention shapes)
-   and times kernel, plain version and, where one exists, a single
-   PyTorch library call.
+   shapes (numpy-seeded inputs; K2 with f32 and bf16 features; K3 also at
+   the BEV self-attention shapes) and times kernel, plain version and,
+   where one exists, a single PyTorch library call (K2 also from a CUDA
+   graph and in host microseconds per call).
 4. Runs the full-width flagship ``FixedRigPipeline`` (FB-OCC R50 16f,
    bf16, random weights from a seeded ``torch.Generator``) over a stream
    of frames -- a sequence start, then small ego motion -- checks labels
@@ -43,7 +44,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    just after, and the small card-vs-CPU label check for the first.
 9. Holds K10 (deformable sampling from precomputed corners, the JAX
    package's drop-in op, on no model path: 0 launches in every stream)
-   against its plain version at K3's cross-attention shapes.
+   against its plain version at K3's cross-attention shapes, bf16 and f32
+   maps, and times it per call, from a CUDA graph and under each of its
+   plans (the corner rows through a ring in shared memory, or loaded
+   directly).
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -60,7 +64,8 @@ every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
 ``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
 plain versions at the flagship (K5 also bit for bit against K1's one-slot
 plain warp), times them and every K5 plan and exits; ``--msda`` does the
-same for K3, K4 and K10 (``msda.cu``); ``--occ``
+same for K3, K4 and K10 (``msda.cu``); ``--pool`` for K2 (``bev_pool.cu``,
+with its plans' tile sizes); ``--occ``
 does the same for K9 and K8 (bf16 and f32; timed per call and from a
 CUDA graph, with their tile plans) after printing the ``-Xptxas -v``
 lines of ``occ_tail.cu``'s kernels (registers, spills).
@@ -209,44 +214,114 @@ def entry(name, src, replaces, err, tol, ms, plain_ms, b, library_ms):
                 library_ms=library_ms)
 
 
-def check_k2(dev):
-    """K2 at the flagship rig: depth (1,6,80,16,44), feat (1,6,16,44,80)."""
+def flagship_pool_inputs(dev):
+    """K2's flagship rig: its ranks (337,920 points), depth (1,6,80,16,44)
+    normalised over the bins, feat (1,6,16,44,80) f32, from seed 2."""
     import torch
     from fbbev_tpu_torch import geometry, host_lib
     from fbbev_tpu_torch.models.lss import LSSViewTransformer3D
     from fbbev_tpu_torch.models.fbocc import DEFAULT_GRID_CONFIG
-    from fbbev_tpu_torch.ops import pallas_pool as K2
     fp = LSSViewTransformer3D(DEFAULT_GRID_CONFIG, (256, 704), 16)
     coor = geometry.frustum_to_ego(torch.from_numpy(fp.frustum),
                                    flagship_rig()).numpy().reshape(-1, 3)
     ranks = host_lib.compute_voxel_ranks(
         coor, np.zeros(len(coor), np.int32), fp.grid_lower,
         fp.grid_interval, fp.grid_size, 1)
-    plan = K2.plan_pool(ranks, 1, 6, fp.D, 16, 44, fp.grid_size).to(dev)
     rng = np.random.RandomState(2)
     d = rng.rand(1, 6, 80, 16, 44).astype(np.float32)
     depth = torch.from_numpy(d / d.sum(2, keepdims=True)).to(dev)
     feat = torch.from_numpy(rng.randn(1, 6, 16, 44, 80).astype(
         np.float32)).to(dev)
-    got = K2.lss_voxel_pool_planned(plan, depth, feat)
-    want = K2.lss_voxel_pool_precomputed(plan.ranks, depth, feat,
-                                         fp.grid_size)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    ms = cuda_time(lambda: K2.lss_voxel_pool_planned(plan, depth, feat))
+    return ranks, fp, depth, feat
+
+
+def check_k2(dev, sweep=False):
+    """K2 at the flagship rig: depth (1,6,80,16,44) f32, feat
+    (1,6,16,44,80) f32 and bf16, each within 1e-4 of the plain version
+    (f32 sums in another order); timed per call, from a CUDA graph and in
+    host microseconds per call, beside the output's ``torch.zeros`` and
+    ``torch.empty`` alone.  The JSON entry is the bf16 run's, the serving
+    path's feature type.  Its bound counts the bytes the kernel moves:
+    depth, feat, the output, the row pointers, the points and the tiles,
+    each once; PR 9's formula (f32 feat, its interval table's two indices
+    a point and three ints an occupied row) is printed beside it for
+    comparison.  With ``sweep`` plans of other tile sizes are checked and
+    timed."""
+    import torch
+    from fbbev_tpu_torch.ops import pallas_pool as K2
+    ranks, fp, depth, feat = flagship_pool_inputs(dev)
+    grid = fp.grid_size
+    plan = K2.plan_pool(ranks, 1, 6, fp.D, 16, 44, grid).to(dev)
+    feats = {"f32": feat, "bf16": feat.to(torch.bfloat16)}
+    wants = {name: K2.lss_voxel_pool_precomputed(plan.ranks, depth,
+                                                 ft.float(), grid)
+             for name, ft in feats.items()}
+    times = {}
+    for name, ft in feats.items():
+        got = K2.lss_voxel_pool_planned(plan, depth, ft)
+        torch.cuda.synchronize()
+        e = (got - wants[name]).abs().max().item()
+        if not e <= 1e-4:
+            raise AssertionError(f"K2 {name}: {e} > 1e-4")
+        call = (lambda ft=ft: K2.lss_voxel_pool_planned(plan, depth, ft))
+        times[name] = (e, cuda_time(call, iters=50), graph_time(call,
+                                                                reps=20),
+                       host_us(call))
+        log(f"K2 feat {name}: max_abs_err {e:.3e}, {times[name][1]:.4f} ms "
+            f"per call, {times[name][2]:.4f} ms from a graph, "
+            f"{times[name][3]:.1f} us host per call")
+    out_elems = wants["f32"].numel()
+    shape = (1, grid[1], grid[0], grid[2], 80)
+    zeros_ms = graph_time(lambda: torch.zeros(shape, device=dev), reps=20)
+    empty_us = host_us(lambda: torch.empty(shape, device=dev))
+    log(f"K2 output alone: torch.zeros {zeros_ms:.4f} ms from a graph; "
+        f"torch.empty {empty_us:.1f} us host per call")
+    fbf = feats["bf16"]
+    _, ms, gms, hus = times["bf16"]
+    err = max(t[0] for t in times.values())
     plain_ms = cuda_time(lambda: K2.lss_voxel_pool_precomputed(
-        plan.ranks, depth, feat, fp.grid_size))
-    prod = (depth[..., None] * feat[:, :, None]).reshape(-1, 80)
+        plan.ranks, depth, fbf.float(), grid))
+    prod = (depth[..., None] * fbf.float()[:, :, None]).reshape(-1, 80)
     acc = torch.zeros(prod.shape[0] + 1, 80, device=dev)
     library_ms = cuda_time(lambda: acc.index_add_(0, plan.ranks, prod))
-    pv, niv = plan.pt_depth.numel(), plan.iv_out.numel()
-    nbytes = (depth.numel() + feat.numel() + got.numel()) * 4 \
-        + pv * 8 + niv * 12
-    log(f"K2: {pv} valid points of {ranks.size}, {niv} voxel intervals")
-    return entry("bev_pool", "fbbev_tpu_torch/csrc/bev_pool.cu",
-                 "fbbev_tpu/ops/pallas_pool.py:207", err, 1e-4, ms,
-                 plain_ms, bound(nbytes, f32_flops=2.0 * pv * 80),
-                 library_ms)
+    rows = out_elems // 80
+    pv = int((ranks < rows).sum())
+    niv = np.unique(ranks[ranks < rows]).size
+    log(f"K2: {pv} valid points of {ranks.size}, {niv} occupied rows of "
+        f"{rows}; {plan.work.numel()} tiles of at most {K2.TILE_ROWS} rows "
+        f"and {K2.TILE_POINTS} points, {plan.n_long} long rows")
+    tables = sum(t.numel() * 4 for t in (plan.row_ptr, plan.pts, plan.work))
+    moved = {name: (depth.numel() + out_elems) * 4 + tables
+             + ft.numel() * ft.element_size() for name, ft in feats.items()}
+    pr9 = (depth.numel() + feat.numel() + out_elems) * 4 + pv * 8 + niv * 12
+    log("K2 bytes moved: " + ", ".join(
+        f"{k} {n} ({1e3 * n / HBM_BPS:.5f} ms)" for k, n in
+        (("feat f32", moved["f32"]), ("feat bf16", moved["bf16"]),
+         ("PR 9's formula", pr9))) + f" at {HBM_BPS / 1e12:.2f} TB/s")
+    if sweep:
+        for tr, tp in ((8, 32), (16, 32), (16, 64), (31, 64), (16, 128),
+                       (31, 128)):
+            p = K2.plan_pool(ranks, 1, 6, fp.D, 16, 44, grid, rows=tr,
+                             points=tp).to(dev)
+            row = []
+            for name, ft in feats.items():
+                e = (K2.lss_voxel_pool_planned(p, depth, ft)
+                     - wants[name]).abs().max().item()
+                if not e <= 1e-4:
+                    raise AssertionError(f"K2 plan {tr}/{tp} {name}: {e}")
+                t = graph_time(lambda ft=ft, p=p:
+                               K2.lss_voxel_pool_planned(p, depth, ft),
+                               reps=20)
+                row.append(f"{name} {t:.4f}")
+            log(f"K2 plan: tiles of {tr} rows / {tp} points "
+                f"({p.work.numel()} tiles, {p.n_long} long rows): ms from "
+                f"a graph {', '.join(row)}")
+    out = entry("bev_pool", "fbbev_tpu_torch/csrc/bev_pool.cu",
+                "fbbev_tpu/ops/pallas_pool.py:207", err, 1e-4, ms,
+                plain_ms, bound(moved["bf16"], f32_flops=2.0 * pv * 80),
+                library_ms)
+    out.update(graph_ms=gms, host_us=hus)
+    return out
 
 
 def check_k3(dev, name, B, HW, hw, Q, P):
@@ -364,11 +439,15 @@ def check_k1(dev, epilogue=True):
 def check_k10(dev):
     """K10 at K3's cross-attention shapes (B 6, 16x44 map, heads 8, hd 10,
     Q 4096, P 8), bf16 value map: the corner entry against its plain
-    version on the same precomputed corners (tolerance 1e-4, as K3).  No
-    path of the JAX package reaches K10 (its docstring: "the model uses
-    the XLA path"), so it launches 0 times per frame; it is held here as
-    the drop-in op it is.  Bound: bytes of the value map, the corner rows
-    (int32 index + f32 weight per corner) and the output, once."""
+    version on the same precomputed corners (tolerance 1e-4, as K3), and
+    the drop-in equal to the corner entry; timed per call, from a CUDA
+    graph and in host microseconds per call, then under its plan and with
+    the corner rows loaded directly, each equal to the entry's result; the
+    f32 map within 1e-4.  No path of the JAX package reaches K10 (its
+    docstring: "the model uses the XLA path"), so it launches 0 times per
+    frame; it is held here as the drop-in op it is.  Bound: bytes of the
+    value map, the corner rows (int32 index + f32 weight per corner) and
+    the output, once."""
     import torch
     from fbbev_tpu_torch.ops import pallas_deform as K10
     B, H, W, heads, hd, Q, P = 6, 16, 44, 8, 10, 4096, 8
@@ -388,18 +467,46 @@ def check_k10(dev):
     if not torch.equal(drop_in, got):
         raise AssertionError("K10 drop-in differs from its corner entry")
     err = (got - want).abs().max().item()
-    ms = cuda_time(lambda: K10.deformable_sample_attend_corners(
-        value, idx, wgt, heads, P))
+    call = (lambda: K10.deformable_sample_attend_corners(value, idx, wgt,
+                                                         heads, P))
+    ms = cuda_time(call, iters=50)
+    gms = graph_time(call, reps=20)
+    hus = host_us(call)
+    log(f"K10 (B {B}, map {(H, W)}, Q {Q}, P {P}): {ms:.4f} ms per call, "
+        f"{gms:.4f} ms from a graph, {hus:.1f} us host per call")
+    # each plan through the launch entry: the same sums in the same
+    # order, so equal to the wrapper's; the f32 map within 1e-4
+    for ring in (True, False):
+        p = K10.plan_corners(B, H * W, heads, hd, Q, P, value.dtype,
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count, ring=ring)
+        out = torch.full_like(got, float("nan"))
+        status = K10._launch(value, idx, wgt, heads, P, out, p)
+        torch.cuda.synchronize()
+        if status != 0 or not torch.equal(out, got):
+            raise AssertionError(f"K10 plan {p} differs")
+        t = graph_time(lambda p=p, out=out: K10._launch(
+            value, idx, wgt, heads, P, out, p), reps=20)
+        log(f"K10 plan {p._asdict()}: {t:.4f} ms from a graph")
+    v32 = value.float()
+    e32 = (K10.deformable_sample_attend_corners(v32, idx, wgt, heads, P)
+           - K10.deformable_sample_attend_corners_plain(
+               v32, idx, wgt, heads, P)).abs().max().item()
+    log(f"K10 f32 map: max_abs_err {e32:.3e} (tol 1.0e-04)")
+    if not e32 <= 1e-4:
+        raise AssertionError(f"K10 f32: {e32}")
     plain_ms = cuda_time(lambda: K10.deformable_sample_attend_corners_plain(
         value, idx, wgt, heads, P))
     nbytes = value.numel() * 2 + idx.numel() * 4 + wgt.numel() * 4 + \
         got.numel() * 4
     log("K10 pallas_deform: no path of the JAX package reaches it; 0 "
         "launches per frame in every stream")
-    return entry("pallas_deform", "fbbev_tpu_torch/csrc/msda.cu",
-                 "fbbev_tpu/ops/pallas_deform.py:61", err, 1e-4, ms,
-                 plain_ms, bound(nbytes, f32_flops=got.numel() * P * 4
-                                 * 2.0), None)
+    out = entry("pallas_deform", "fbbev_tpu_torch/csrc/msda.cu",
+                "fbbev_tpu/ops/pallas_deform.py:61", err, 1e-4, ms,
+                plain_ms, bound(nbytes, f32_flops=got.numel() * P * 4
+                                * 2.0), None)
+    out.update(graph_ms=gms, host_us=hus)
+    return out
 
 
 def flagship_flow_matrix(dev):
@@ -1605,6 +1712,12 @@ def main():
         check_k1(dev, epilogue=False)
         check_k5(dev, sweep=True)
         log(f"chip_smoke --k1: {time.perf_counter() - T0:.1f} s")
+        return 0
+    if "--pool" in sys.argv[1:]:
+        # K2 alone, after its ptxas lines, with its plan sweep
+        log(f"bev_pool.cu ptxas: {lib_ptxas('bev_pool')}")
+        check_k2(dev, sweep=True)
+        log(f"chip_smoke --pool: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--msda" in sys.argv[1:]:
         # K3, K4 and K10 alone (msda.cu), after their ptxas lines

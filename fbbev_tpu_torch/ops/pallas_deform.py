@@ -10,11 +10,16 @@ tent_x * tent_y * attn, zero for corners outside the map.  Rows are the
 samples (q, h, p) in that order.  No path of the JAX package calls it (its
 docstring: the model uses the XLA path); it is ported as the op it is.
 
-CUDA kernel (``csrc/msda.cu``, ``fbbev_msda_corners``): K3's gather, one
-thread per (map, query, channel), each sample's four corners read as one
-16-byte index row and one 16-byte weight row.  The TPU's one-hot matmul is
-not carried over.  Bound on the card: bytes (value map, corner rows and
-output once).
+CUDA kernel (``csrc/msda.cu``, ``fbbev_msda_corners``): K3's kernel
+(``msda_kernel``) with the corners read instead of computed: one thread
+per (map, query, head) with the head's ``hd`` sums in registers, the map
+staged once per persistent block by one bulk copy where it fits shared
+memory (:func:`plan_corners`, a sibling of K3's ``plan_msda``), each
+point's 16-byte index row and weight row read once.  Where a pair has 8
+points and the staged map leaves room, each warp streams its next 32
+pairs' corner rows through a two-stage ring in shared memory
+(``cp.async``, whole sectors) instead of loading them directly.  Bound on the card: bytes, 85% of them the corner
+rows.  The TPU's one-hot matmul is not carried over.
 
 Rounding, as the TPU kernel's (``pallas_deform.py:47-50``): each corner
 weight is rounded to the value type; the products are summed in f32.  The
@@ -25,15 +30,52 @@ kernel.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from fbbev_tpu_torch.ops import _cuda
 from fbbev_tpu_torch.ops.deform_attn import bilinear_corners
+from fbbev_tpu_torch.ops.pallas_sample import SMEM_LIMIT, STAGED_THREADS, \
+    MsdaPlan, plan_msda
 
 launches = 0
+
+RING_STAGES = 2      # ``msda.cu::kRingStages``
+# Where the ring pays, from a sweep of 1 to all the warps that fit against
+# direct loads, bf16 maps of 16x44 and 20x50, hd 10 and 8 (H100): at 8
+# points a pair from 3 warps on, at 4 points hardly or not at all.
+RING_MIN_WARPS = 3
+RING_POINTS = 8
+
+
+def ring_stage_bytes(P: int) -> int:
+    """A ring stage: 32 pairs' index and weight rows, each pair's P rows
+    padded by 16 bytes (``msda.cu::ring_stage``)."""
+    return 2 * 32 * (16 * P + 16)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_corners(B: int, HW: int, heads: int, hd: int, Q: int, P: int,
+                 dtype: torch.dtype, sms: int = 132,
+                 ring: bool = True) -> MsdaPlan:
+    """K3's plan at these shapes (:func:`pallas_sample.plan_msda`; it
+    raises on a type or (hd, P) the kernel does not take); with ``ring``,
+    a staged map and :data:`RING_POINTS` points a pair, as many warps a
+    block (up to 16) as have room for their ring stages beside the map, if
+    that is at least :data:`RING_MIN_WARPS`; else the rows are loaded
+    directly."""
+    base = plan_msda(B, HW, heads, hd, Q, P, dtype, sms)
+    if not (ring and base.staged and P == RING_POINTS):
+        return base
+    per_warp = RING_STAGES * ring_stage_bytes(P)
+    w = min((SMEM_LIMIT - base.smem) // per_warp, STAGED_THREADS // 32)
+    if w < RING_MIN_WARPS:
+        return base
+    bpm = max(1, min(sms // max(B, 1), -(-Q * heads // (32 * w))))
+    return MsdaPlan(True, 32 * w, bpm, B * bpm, base.smem + w * per_warp,
+                    ring=True)
 
 
 def corners(loc: torch.Tensor, attn: torch.Tensor, H: int, W: int):
@@ -66,14 +108,28 @@ def deformable_sample_attend_corners_plain(value: torch.Tensor,
     return out.permute(0, 2, 1, 3).reshape(B, Q, heads * hd)
 
 
+def _launch(value: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
+            heads: int, P: int, out: torch.Tensor, plan: MsdaPlan) -> int:
+    """Launch the kernel under ``plan``: value, idx, wgt and out
+    contiguous and 16-byte aligned on the card, checked by the caller.
+    Returns the ``cudaError_t``."""
+    B, HW, _, hd = value.shape
+    Q = idx.shape[1] // (heads * P)
+    return _cuda.entry("msda", "fbbev_msda_corners", 4, 12)(
+        value.data_ptr(), idx.data_ptr(), wgt.data_ptr(), out.data_ptr(),
+        int(value.dtype == torch.bfloat16), B, HW, Q, heads, P, hd,
+        int(plan.staged), int(plan.ring), plan.threads, plan.blocks_per_map,
+        plan.smem, _cuda.stream_ptr(value))
+
+
 def deformable_sample_attend_corners(value: torch.Tensor, idx: torch.Tensor,
                                      wgt: torch.Tensor, heads: int,
                                      P: int) -> torch.Tensor:
     """The kernel entry; shapes as :func:`deformable_sample_attend_
     corners_plain`.  CUDA tensors launch the kernel (value bf16 or f32,
-    idx int32 in [0, HW), wgt f32); CPU tensors take the plain version.
-    Raises ``RuntimeError`` when grad mode is on and an input requires
-    grad (no backward)."""
+    (hd, P) in ``pallas_sample.MSDA_SHAPES``, idx int32 in [0, HW), wgt
+    f32); CPU tensors take the plain version.  Raises ``RuntimeError``
+    when grad mode is on and an input requires grad (no backward)."""
     _cuda.refuse_grad("deformable_sample_attend_corners (K10)", value, wgt)
     if not value.is_cuda:
         return deformable_sample_attend_corners_plain(value, idx, wgt, heads,
@@ -87,23 +143,22 @@ def deformable_sample_attend_corners(value: torch.Tensor, idx: torch.Tensor,
             or N % (heads * P):
         raise ValueError(f"idx {tuple(idx.shape)} wgt {tuple(wgt.shape)} "
                          f"for B={B}, heads={heads}, P={P}")
-    if value.dtype not in (torch.bfloat16, torch.float32) \
-            or idx.dtype != torch.int32 or wgt.dtype != torch.float32:
-        raise ValueError(f"dtypes value {value.dtype} idx {idx.dtype} wgt "
-                         f"{wgt.dtype}")
+    if idx.dtype != torch.int32 or wgt.dtype != torch.float32:
+        raise ValueError(f"dtypes idx {idx.dtype} wgt {wgt.dtype}")
     if not (idx.is_cuda and wgt.is_cuda):
         raise ValueError("value, idx and wgt must be on the card")
     Q = N // (heads * P)
-    value, idx, wgt = value.contiguous(), idx.contiguous(), wgt.contiguous()
+    plan = plan_corners(B, HW, heads, hd, Q, P, value.dtype,
+                        _cuda.sm_count(value.device))
+    # the kernel's 16-byte loads: a view that starts off the 16-byte grid
+    # is copied
+    value, idx, wgt = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                       else t.clone(memory_format=torch.contiguous_format)
+                       for t in (value, idx, wgt))
     out = torch.empty(B, Q, heads * hd, dtype=torch.float32,
                       device=value.device)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.lib("msda").fbbev_msda_corners
-    fn.argtypes = [vp, vp, vp, vp] + [ci] * 7 + [vp]
-    fn.restype = ci
-    _cuda.check(fn(value.data_ptr(), idx.data_ptr(), wgt.data_ptr(),
-                   out.data_ptr(), int(value.dtype == torch.bfloat16), B, HW,
-                   Q, heads, P, hd, _cuda.stream_ptr(value)), "msda_corners")
+    _cuda.check(_launch(value, idx, wgt, heads, P, out, plan),
+                "msda_corners")
     launches += 1
     return out
 

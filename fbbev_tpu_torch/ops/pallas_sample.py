@@ -60,12 +60,15 @@ GLOBAL_THREADS = 128  # a block of the global-row path (~5 a SM at K4)
 class MsdaPlan(NamedTuple):
     """The kernel's plan: whether each map is staged in shared memory,
     threads a block, persistent blocks per map (staged), the grid and the
-    shared-memory bytes (the map's + 16 for its mbarrier, or 0)."""
+    shared-memory bytes (the map's + 16 for its mbarrier, or 0); for K10
+    (``ops/pallas_deform.py::plan_corners``) whether the corner rows go
+    through each warp's ring, whose stages ``smem`` then counts too."""
     staged: bool
     threads: int
     blocks_per_map: int
     grid: int
     smem: int
+    ring: bool = False
 
 
 @functools.lru_cache(maxsize=64)

@@ -76,7 +76,7 @@ class FixedRigPipeline:
             context, depth = mdl.depth_net(feats, self.mlp_input)
         with stage("voxel_pool"):
             bev = lss_voxel_pool_planned(self.pool_plan, depth.contiguous(),
-                                         context.float().contiguous())
+                                         context.contiguous())
         with stage("backward_projection"):
             lss_bev = bev.mean(dim=3)
             refined = mdl.backward_projection(

@@ -52,6 +52,39 @@ def test_k2_kernel_matches_plain(dev):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+def test_k2_writes_every_row(dev, feat_dtype):
+    """K2 through its launch entry into a NaN-filled output, B = 2, one
+    row of 200 points (more than a tile's points: a tile alone, walked
+    first), f32 and bf16 features: every row written, empty rows 0, all
+    within 1e-4 of the plain version on the widened features (f32 sums in
+    another order)."""
+    rng = np.random.RandomState(3)
+    B, N, D, fH, fW, C, grid = 2, 3, 8, 4, 8, 80, (12, 10, 4)
+    P, per = B * N * D * fH * fW, 480
+    ranks = (np.arange(P) // (P // B)) * per + rng.randint(0, per, size=P)
+    ranks = np.where(rng.rand(P) > 0.6, B * per, ranks)
+    ranks[rng.choice(P // B, 200, replace=False)] = 7
+    plan = K2.plan_pool(ranks.astype(np.int32), B, N, D, fH, fW, grid)
+    n = np.diff(plan.row_ptr.numpy())
+    assert n.max() >= 200 > K2.TILE_POINTS and (n == 0).any()
+    plan = plan.to(dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    depth = torch.rand(B, N, D, fH, fW, generator=g).to(dev)
+    feat = torch.randn(B, N, fH, fW, C, generator=g).to(dev, feat_dtype)
+    out = torch.full((B, 10, 12, 4, C), float("nan"), device=dev)
+    assert K2._launch(plan, depth, feat, out) == 0
+    torch.cuda.synchronize()
+    assert not out.isnan().any()
+    want = K2.lss_voxel_pool_precomputed(plan.ranks, depth, feat.float(),
+                                         grid)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    before = K2.launches
+    got = K2.lss_voxel_pool_planned(plan, depth, feat)
+    assert K2.launches == before + 1
+    assert torch.equal(got, out)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_kernel_matches_plain(dev, dtype):
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -425,6 +458,50 @@ def test_k10_kernel_matches_plain(dev, dtype):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     drop_in = K10.pallas_deformable_sample_attend(v, (16, 44), loc, attn)
     assert torch.equal(drop_in, got)
+
+
+# (name, B, (H, W), Q, hd, P): the cross-attention's camera maps (staged,
+# the ring beside a bf16 map), a ragged staged case at the small config's
+# hd, and a map too large to stage (rows from global memory)
+K10_CASES = [("cross", 2, (16, 44), 300, 10, 8),
+             ("ragged", 3, (7, 9), 77, 8, 4),
+             ("global", 1, (40, 40), 1600, 10, 4)]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in K10_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k10_staged_ring_and_global_rows_match_plain(dev, dtype, case):
+    """K10 within 1e-4 of its plain version at staged, ragged and unstaged
+    shapes, its counter up by one a call; its plan, the rows loaded
+    directly, and a ring of the fewest warps the plan takes it with (a
+    block of another size) through the launch entry, each equal to the
+    wrapper's result (the same sums in the same order), into NaN-filled
+    outputs."""
+    _, B, (H, W), Q, hd, P = next(c for c in K10_CASES if c[0] == case)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    v = torch.randn(B, H * W, 8, hd, generator=g).to(dev, dtype)
+    loc = (torch.rand(B, Q, 8, P, 2, generator=g) * 1.2 - 0.1).to(dev)
+    attn = torch.softmax(torch.randn(B, Q, 8, P, generator=g), -1).to(dev)
+    idx, wgt = K10.corners(loc, attn, H, W)
+    before = K10.launches
+    got = K10.deformable_sample_attend_corners(v, idx, wgt, 8, P)
+    assert K10.launches == before + 1
+    want = K10.deformable_sample_attend_corners_plain(v, idx, wgt, 8, P)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    base = K10.plan_corners(B, H * W, 8, hd, Q, P, dtype, ring=False)
+    auto = K10.plan_corners(B, H * W, 8, hd, Q, P, dtype)
+    plans = {base, auto}
+    assert auto.ring == (case == "cross" and dtype == torch.bfloat16)
+    if auto.ring:
+        w = K10.RING_MIN_WARPS
+        per_warp = K10.RING_STAGES * K10.ring_stage_bytes(P)
+        plans.add(auto._replace(threads=32 * w,
+                                smem=base.smem + w * per_warp))
+    for p in plans:
+        out = torch.full_like(got, float("nan"))
+        assert K10._launch(v, idx, wgt, 8, P, out, p) == 0, p
+        torch.cuda.synchronize()
+        assert torch.equal(out, got), p
 
 
 def _occ_levels(g, dev, dtype, C, Y=16, X=24, Z=16, factors=(1, 2, 4, 8),

@@ -2,7 +2,7 @@
 kernels, run through the Pallas interpreter on CPU.
 
 * K2 (voxel pool) vs ``pallas_pool.lss_voxel_pool_planned``; plus the
-  sorted interval table the CUDA kernel walks, emulated in numpy.
+  CUDA kernel's walk over its row tiles, emulated in numpy.
 * K3 (deformable sampling) vs ``pallas_sample.deformable_sample_attend_
   pallas``, f32 and bf16 value maps, and vs mmcv's ``grid_sample``
   formulation.
@@ -49,6 +49,7 @@ from fbbev_tpu_torch.ops import pallas_pool as K2
 from fbbev_tpu_torch.ops import pallas_sample as K3
 from fbbev_tpu_torch.ops import pallas_warp as K5
 
+from tests.test_torch_pool_deform import emulate_k2
 from tests.test_torch_slice import flow
 
 torch.set_num_threads(1)
@@ -66,7 +67,7 @@ def _random_ranks(rng, B, N, D, fH, fW, grid_size, valid_frac=0.6):
 
 @pytest.mark.parametrize("B,N", [(1, 2), (2, 3)])
 def test_k2_plain_matches_pallas_pool(rng, B, N):
-    """Plain pool and the numpy walk of the kernel's interval table vs the
+    """Plain pool and the numpy walk of the kernel's row tiles vs the
     interpreted TPU kernel (1e-5)."""
     D, fH, fW, C = 5, 4, 8, 24
     grid_size = (12, 10, 4)
@@ -82,18 +83,12 @@ def test_k2_plain_matches_pallas_pool(rng, B, N):
                                     torch.from_numpy(feat)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
-    # the CUDA kernel's walk: one interval -> one output row, written once
-    out = np.zeros((B * 10 * 12 * 4, C), np.float32)
-    fd, ff = depth.reshape(-1), feat.reshape(-1, C)
-    ivo = plan.iv_out.numpy()
-    assert len(np.unique(ivo)) == len(ivo)
-    for s, n, o in zip(plan.iv_start.numpy(), plan.iv_len.numpy(), ivo):
-        p = slice(s, s + n)
-        out[o] = (fd[plan.pt_depth.numpy()[p], None]
-                  * ff[plan.pt_feat.numpy()[p]]).sum(0)
-    assert plan.iv_len.numpy().sum() == (ranks < B * 480).sum()
-    np.testing.assert_allclose(out.reshape(want.shape), want, rtol=1e-5,
-                               atol=1e-5)
+    # the CUDA kernel's walk over the plan's row tiles: every output row
+    # written once, empty rows with zeros
+    out = emulate_k2(plan, depth, feat)
+    assert not np.isnan(out).any()
+    assert plan.pts.numel() == (ranks < B * 480).sum()
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------- K3
