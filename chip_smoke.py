@@ -48,6 +48,15 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    maps, and times it per call, from a CUDA graph and under each of its
    plans (the corner rows through a ring in shared memory, or loaded
    directly).
+10. The config-built serving entry (``run_config``): the flagship built
+    from ``fbbev_tpu_torch/configs/fbocc-r50-cbgs_depth_16f.py`` through
+    ``train.loop.build_model`` with perturbed BatchNorms, folded and
+    unfolded, 5 frames each (label agreement, exact launch counts);
+    ``FixedRigPipeline.benchmark`` on the folded one; the single-frame
+    config with K1 at T = 1 held against its plain version; the float32
+    tiny config on the card and on the CPU, with K1's f32 kernel held
+    against its plain version; and both benchmark tools' JSON lines
+    (``fbbev_tpu_torch/tools``), each with exact launch counts.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -60,6 +69,7 @@ the default configuration alone; ``--profile-occ`` the routed and blend
 streams, those that take K8 and K9 (copied beside an older tree's
 package, it profiles that package).  ``--k6-plans`` and ``--k7-plans`` time
 every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
+``--config`` runs the config phase (10.) alone.
 ``--k1`` builds the kernels, prints the ``-Xptxas -v`` lines of
 ``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
 plain versions at the flagship (K5 also bit for bit against K1's one-slot
@@ -360,18 +370,19 @@ def check_k3(dev, name, B, HW, hw, Q, P):
     return out
 
 
-def check_k1(dev, epilogue=True):
-    """K1 at the flagship: hist (1,8,100,100,1280) bf16, curr
-    (1,100,100,8,80) bf16, epilogue to F=160.  Times per call (CUDA events
-    around back-to-back calls, the wrapper's host time included) and
-    replayed from a CUDA graph (``graph_ms``); with the epilogue the
-    kernel's plan and its registers from ``-Xptxas -v``."""
+def check_k1(dev, epilogue=True, T=16):
+    """K1 at the flagship: hist (1,8,100,100,80*T) bf16 (T = 16 history
+    frames; 1 in the single-frame config), curr (1,100,100,8,80) bf16,
+    epilogue to F=160.  Times per call (CUDA events around back-to-back
+    calls, the wrapper's host time included) and replayed from a CUDA
+    graph (``graph_ms``); with the epilogue the kernel's plan and its
+    registers from ``-Xptxas -v``."""
     import torch
     from fbbev_tpu_torch import geometry
     from fbbev_tpu_torch.ops import _cuda
     from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
     rng = np.random.RandomState(4)
-    B, Z, Y, X, C, T, F = 1, 8, 100, 100, 80, 16, 160
+    B, Z, Y, X, C, F = 1, 8, 100, 100, 80, 160
     t = (lambda a, dt=torch.float32: torch.from_numpy(
         np.asarray(a, np.float32)).to(dev, dt))
     hist = t(rng.randn(B, Z, Y, X, T * C), torch.bfloat16)
@@ -382,7 +393,7 @@ def check_k1(dev, epilogue=True):
     eye = torch.eye(4, device=dev)[None]
     mat = geometry.flow_matrix_from_grid_args(eye, eye, t(flow(1)), f2b)
     start = torch.zeros(B, dtype=torch.bool, device=dev)
-    hsel = torch.tensor([5], device=dev)
+    hsel = torch.tensor([min(5, T - 1)], device=dev)
     epi = None
     if epilogue:
         epi = dict(kc=t(rng.randn(C, C) / np.sqrt(C)),
@@ -421,13 +432,14 @@ def check_k1(dev, epilogue=True):
     if epilogue:
         nbytes += (epi["ws"].numel()) * 2 + C * C * 2
         tc = 2.0 * V * T * C * (C + F)
-    log(f"K1 {'with' if epilogue else 'without'} the epilogue: {ms:.4f} ms "
-        f"per call, {gms:.4f} ms from a graph")
+    log(f"K1 {'with' if epilogue else 'without'} the epilogue at T={T}: "
+        f"{ms:.4f} ms per call, {gms:.4f} ms from a graph")
     # epilogue: f32 sums in another order can move y1 across a bf16
     # rounding boundary (1 ulp = 2^-8 relative) before the 1280-row
     # product; without it the slots are the bf16 warp (one ulp allowed)
     tol = 2e-2 if epilogue else 2.0 ** -7 * want.float().abs().max().item()
-    out = entry("fuse_warp" if epilogue else "fuse_warp_noepi",
+    out = entry(("fuse_warp" if epilogue else "fuse_warp_noepi")
+                + ("" if T == 16 else f"_t{T}"),
                 "fbbev_tpu_torch/csrc/fuse_warp.cu",
                 "fbbev_tpu/ops/pallas_fuse_warp.py:280", err, tol, ms,
                 plain_ms,
@@ -1280,6 +1292,12 @@ PER_FRAME = {
                    conv3d=16, occ_tail=1),
     "blend": dict(bev_pool=1, msda=1, msda_selfattn=1, fuse_warp=1,
                   occ_fuse=1),
+    # the float32 tiny config: K1's f32 epilogue kernel
+    "f32": dict(bev_pool=1, msda=1, msda_selfattn=1, fuse_warp_f32=1),
+    # FBOCC.forward in eval (tools.benchmark's inference): the segment-sum
+    # voxel pool, K3 twice, K1; in training none of them
+    "forward": dict(msda=1, msda_selfattn=1, fuse_warp=1),
+    "train": dict(),
 }
 
 
@@ -1292,6 +1310,7 @@ def _counted():
             (pallas_sample, "launches", "msda"),
             (pallas_sample, "selfattn_launches", "msda_selfattn"),
             (pallas_fuse_warp, "launches", "fuse_warp"),
+            (pallas_fuse_warp, "f32_launches", "fuse_warp_f32"),
             (pallas_warp, "launches", "warp_affine"),
             (pallas_conv3d, "launches", "conv3d"),
             (pallas_occ_tail, "launches", "occ_tail"),
@@ -1418,6 +1437,248 @@ def run_small_parity(dev, **routes):
         f"agreement {agree:.5f} (min over 3 frames)")
     if agree < 0.95:
         raise AssertionError(f"card and CPU disagree: {agree}")
+
+
+CONFIGS = os.path.join(ROOT, "fbbev_tpu_torch", "configs")
+
+
+def config_stream(pipe, imgs, label, hooks=()):
+    """``imgs`` through ``pipe`` (a sequence start, then flow(1)) with the
+    launch counts set to 0 just before and read just after; checks
+    finite logits on every frame.  Returns (labels per frame on the CPU,
+    counts)."""
+    import torch
+    model = pipe.model
+    finite = []
+    handle = model.occupancy_head.occ_pred_conv[3].register_forward_hook(
+        lambda m, i, o: finite.append(bool(torch.isfinite(o).all())) or None)
+    try:
+        reset_counts()
+        labels = [pipe(im, i == 0, flow(0 if i == 0 else 1)).cpu()
+                  for i, im in enumerate(imgs)]
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        handle.remove()
+    if not (len(finite) == len(imgs) and all(finite)):
+        raise AssertionError(f"{label}: non-finite logits {finite}")
+    log(f"launches in the {label} stream: {counts}")
+    return labels, counts
+
+
+def expect_counts(label, counts, frames, per_frame):
+    want = {k: per_frame.get(k, 0) * frames for k in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def run_config(dev):
+    """The config-built serving entry: models built from the port's config
+    files through ``train.loop.build_model``, BatchNorms folded.
+
+    1. The flagship (``fbocc-r50-cbgs_depth_16f.py``) in float32 with a
+       seeded generator, its BatchNorm statistics and scales perturbed,
+       folded (a copy unfolded), both cast to the config's bf16: a 5-frame
+       stream through each, label agreement >= 0.98, finite logits, and
+       per frame exactly K1 1, K2 1, K3 2 (cross- and self-attention).
+    2. ``FixedRigPipeline.benchmark(iters=20)`` on the folded flagship.
+    3. The single-frame config (``fbocc-r50_depth_1f.py``, K1 at T = 1):
+       3 frames, K1's last launch held against its plain version on the
+       same inputs, and K1 at T = 1 checked and timed alone.
+    4. The tiny config (``fbocc-r50-tiny_synthetic.py``: 2 cameras at
+       64x176, a 25x25x8 grid, T = 2) on the card and on the CPU in its
+       own float32: labels agree on >= 95% of voxels, K1's f32 kernel
+       launched once a frame and held against its plain version.
+    5. Both tools' ``main`` on the flagship at few iterations, each with
+       its exact launch counts.
+
+    Returns K1 at T = 1 (``check_k1``'s entry) and K1's f32 kernel
+    (``check_k1_f32``'s)."""
+    import copy
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.tools import benchmark, serving_bench
+    from fbbev_tpu_torch.train.loop import build_model
+    from fbbev_tpu_torch.utils.fuse_bn import build_folded, \
+        fold_batch_norms, perturb_batch_norms
+    bf16 = torch.bfloat16
+    flagship = os.path.join(CONFIGS, "fbocc-r50-cbgs_depth_16f.py")
+    cfg = Config.fromfile(flagship)
+    t0 = time.perf_counter()
+    unfolded = build_model(cfg, device=dev, dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0))
+    perturb_batch_norms(unfolded, torch.Generator().manual_seed(3))
+    folded = copy.deepcopy(unfolded)
+    pairs = fold_batch_norms(folded)
+    unfolded.cast(bf16)
+    folded.cast(bf16)
+    log(f"config: flagship built from {os.path.relpath(flagship, ROOT)}, "
+        f"BatchNorms perturbed, {len(pairs)} conv/BN pairs folded, cast to "
+        f"bf16 in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(1)
+    imgs = [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
+            for _ in range(5)]
+    labels = {}
+    for label, model in (("folded", folded), ("unfolded", unfolded)):
+        pipe = FixedRigPipeline(model, flagship_rig())
+        labels[label], counts = config_stream(pipe, imgs,
+                                              f"config {label} flagship")
+        expect_counts(label, counts, 5, PER_FRAME["default"])
+        if label == "folded":
+            folded_pipe = pipe
+    agree = [float((a == b).float().mean())
+             for a, b in zip(labels["folded"], labels["unfolded"])]
+    log(f"config: folded vs unfolded bf16 flagship label agreement per "
+        f"frame {[round(a, 5) for a in agree]}, min {min(agree):.5f}")
+    if min(agree) < 0.98:
+        raise AssertionError(f"folded and unfolded disagree: {agree}")
+    del unfolded
+    torch.cuda.empty_cache()
+
+    fps = folded_pipe.benchmark(iters=20)
+    log(f"config: FixedRigPipeline.benchmark(iters=20), folded bf16 "
+        f"flagship: {fps:.4f} frames/s, {1e3 / fps:.4f} ms per frame "
+        f"({nvidia_smi_line()})")
+    del folded_pipe, folded, pipe, model
+    torch.cuda.empty_cache()
+
+    # the single-frame config: K1 at T = 1 on the stream's own inputs
+    cfg1 = Config.fromfile(os.path.join(CONFIGS, "fbocc-r50_depth_1f.py"))
+    model = build_folded(cfg1, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    pipe = FixedRigPipeline(model, flagship_rig())
+    (_, counts), (a, k) = k1_captured(lambda: config_stream(
+        pipe, imgs[:3], "config single-frame"))
+    expect_counts("single-frame", counts, 3, PER_FRAME["default"])
+    if a[0].shape[-1] != 80:
+        raise AssertionError(f"single-frame history {tuple(a[0].shape)}")
+    got, gh = K1.fuse_warp(*a, **k)
+    want, wh = K1.fuse_warp_plain(*a, **k)
+    err = (got.float() - want.float()).abs().max().item()
+    herr = (gh.float() - wh.float()).abs().max().item()
+    log(f"config: single-frame stream, K1 at T=1 against its plain version "
+        f"on the last frame's inputs: fused max_abs_err {err:.3e} (tol "
+        f"2e-2), new history {herr:.3e} (tol one bf16 ulp of "
+        f"{wh.float().abs().max().item():.3e})")
+    if err > 2e-2 or herr > 2.0 ** -7 * wh.float().abs().max().item():
+        raise AssertionError("K1 at T=1 differs from its plain version")
+    del pipe, model, a, k
+    torch.cuda.empty_cache()
+    k1_t1 = check_k1(dev, epilogue=True, T=1)
+
+    # the tiny config in its own float32 on the card and on the CPU; K1's
+    # f32 kernel held against its plain version on the stream's inputs
+    tiny = Config.fromfile(os.path.join(CONFIGS,
+                                        "fbocc-r50-tiny_synthetic.py"))
+    out = {}
+    for d in ("cpu", dev):
+        m = build_model(tiny, device=d,
+                        generator=torch.Generator().manual_seed(5))
+        if m.dtype != torch.float32:
+            raise AssertionError(f"tiny config built in {m.dtype}")
+        pipe = FixedRigPipeline(m, flagship_rig(N=2, H=64, W=176))
+        g = torch.Generator().manual_seed(6)
+        frames = [torch.randn(1, 2, 64, 176, 3, generator=g)
+                  for _ in range(3)]
+        if d == "cpu":
+            out[d] = [pipe(f, i == 0, flow(0 if i == 0 else 1))
+                      for i, f in enumerate(frames)]
+        else:
+            (out[d], counts), (a, k) = k1_captured(lambda: config_stream(
+                pipe, frames, "config tiny (float32)"))
+            expect_counts("tiny", counts, 3, PER_FRAME["f32"])
+    agree = min(float((x == y).float().mean())
+                for x, y in zip(out["cpu"], out[dev]))
+    log(f"config: tiny config (float32), card vs CPU plain versions: label "
+        f"agreement {agree:.5f} (min over 3 frames)")
+    if agree < 0.95:
+        raise AssertionError(f"tiny config: card and CPU disagree: {agree}")
+    k1_f32 = check_k1_f32(a, k, counts["fuse_warp_f32"])
+    del pipe, m, a, k
+
+    # the tools on the flagship, each run with the counts set to 0 just
+    # before it: serving_bench's (rounds + 1) x chunk frames, benchmark's
+    # iters + 1 eval forwards (K1 1, K3 2 each) or train steps (none)
+    for tool, argv, calls, per in (
+            (serving_bench, [flagship, "--chunk", "4", "--rounds", "2"], 12,
+             "default"),
+            (benchmark, [flagship, "--iters", "5"], 6, "forward"),
+            (benchmark, [flagship, "--iters", "3", "--train-step"], 4,
+             "train")):
+        t0 = time.perf_counter()
+        reset_counts()
+        line = tool.main(argv)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"config: {tool.__name__.rsplit('.', 1)[-1]} {argv[1:]} took "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(line)} "
+            f"({nvidia_smi_line()}); launches {counts}")
+        expect_counts(f"{tool.__name__} {argv[1:]}", counts, calls,
+                      PER_FRAME[per])
+        torch.cuda.empty_cache()
+    return k1_t1, k1_f32
+
+
+def k1_captured(run):
+    """``run()`` with K1's wrapper recording its inputs: (run's result,
+    (args, kwargs) of K1's last call)."""
+    from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
+    real, seen = K1.fuse_warp, []
+
+    def fuse_warp(*a, **k):
+        seen[:] = [(a, k)]
+        return real(*a, **k)
+
+    K1.fuse_warp = fuse_warp
+    try:
+        result = run()
+    finally:
+        K1.fuse_warp = real
+    return result, seen[0]
+
+
+def check_k1_f32(a, k, launches):
+    """K1's f32 epilogue kernel against its plain version on the tiny
+    config's last K1 inputs (f32 history (1, 8, 25, 25, 2*80), F = 160):
+    the new history (the same f32 operations in the same order: expected
+    bit-identical) and the fused part (f32 sums in another order), timed
+    per call and from a CUDA graph; its bound on the FP32 cores."""
+    import torch
+    from fbbev_tpu_torch.ops import pallas_fuse_warp as K1
+    hist, curr = a[0], a[1]
+    epi = k["epilogue"]
+    if hist.dtype != torch.float32:
+        raise AssertionError(f"tiny K1 history {hist.dtype}")
+    got, gh = K1.fuse_warp(*a, **k)
+    want, wh = K1.fuse_warp_plain(*a, **k)
+    torch.cuda.synchronize()
+    herr = (gh - wh).abs().max().item()
+    log(f"K1 f32 new history: max |diff| {herr:.3e}")
+    if herr > 1e-6 * wh.abs().max().item():
+        raise AssertionError("K1 f32 new history differs from its plain "
+                             "version")
+    err = (got - want).abs().max().item()
+    call = (lambda: K1.fuse_warp(*a, **k))
+    ms = cuda_time(call, iters=10)
+    gms = graph_time(call)
+    plain_ms = cuda_time(lambda: K1.fuse_warp_plain(*a, **k), iters=3,
+                         warmup=1)
+    log(f"K1 f32 at {tuple(hist.shape)}: {ms:.4f} ms per call, {gms:.4f} "
+        f"ms from a graph")
+    B, Z, Y, X, TC = hist.shape
+    C, F = curr.shape[-1], epi["ws"].shape[-1]
+    T, V = TC // C, B * Z * Y * X
+    nbytes = 4 * (2 * hist.numel() + curr.numel() + got.numel()
+                  + epi["ws"].numel() + C * C)
+    flops = 2.0 * 8 * V * T * C + 2.0 * V * T * C * (C + F)
+    out = entry("fuse_warp_f32", "fbbev_tpu_torch/csrc/fuse_warp.cu",
+                "fbbev_tpu/ops/pallas_fuse_warp.py:280", err,
+                1e-4 * max(1.0, want.abs().max().item()), ms, plain_ms,
+                bound(nbytes, f32_flops=flops), None)
+    out.update(launches=launches, graph_ms=gms)
+    return out
 
 
 def profile_frames(pipe, imgs, frames, ours, label):
@@ -1734,6 +1995,11 @@ def main():
         check_k8(dev)
         log(f"chip_smoke --occ: {time.perf_counter() - T0:.1f} s")
         return 0
+    if "--config" in sys.argv[1:]:
+        # the config-built entry alone (run_config)
+        run_config(dev)
+        log(f"chip_smoke --config: {time.perf_counter() - T0:.1f} s")
+        return 0
     if "--k6-plans" in sys.argv[1:]:
         k6_plans(dev)
         return 0
@@ -1772,8 +2038,13 @@ def main():
     train_counts, step_ms, peak = run_train(dev)
     for k in k7:
         k["launches"] = train_counts[k["name"]]
+    k1_t1, k1_f32 = run_config(dev)
+    kernels[3].update(t1_ms=k1_t1["ms"], t1_graph_ms=k1_t1["graph_ms"],
+                      t1_plain_ms=k1_t1["plain_ms"],
+                      t1_bound_ms=k1_t1["bound_ms"],
+                      t1_max_abs_err=k1_t1["max_abs_err"])
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
-    log(json.dumps({"kernels": kernels + k7 + routed + [k10]}))
+    log(json.dumps({"kernels": kernels + [k1_f32] + k7 + routed + [k10]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

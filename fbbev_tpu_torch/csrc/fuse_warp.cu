@@ -10,10 +10,11 @@
 // z-major history are read, weighted by the tent product rounded to the
 // history type, and summed in f32.  Zero outside the volume.  Then
 //   warped  = warped * (1 - start) + curr * start
-//   newhist = slot t == hsel ? curr : warped        (written, bf16)
+//   newhist = slot t == hsel ? curr : warped        (written)
 // and without the epilogue the warped slots are written; with it, per slot
-//   y1   = relu(bf16(warped_t) @ kc + tvec_t * ke + kb)
-//   acc += bf16(y1) @ ws[t]                          (fused, f32)
+//   y1   = relu(rnd(warped_t) @ kc + tvec_t * ke + kb)
+//   acc += rnd(y1) @ ws[t]                           (fused, f32)
+// rnd rounding to the history type, bf16 or f32.
 // so the T*C-channel slots never reach device memory.  The TPU's slab
 // DMAs, (8, 128) padding and tiling are not carried over: the card
 // gathers the corner rows directly and its caches hold the neighbours.
@@ -27,7 +28,7 @@
 // the warped volume (K5) written once (2 x 205 MB in bf16 at the
 // flagship); K1's epilogue, 49 GFLOP, sits below that on the tensor cores.
 //
-// Three kernels.  fuse_warp_kernel (K1 without the epilogue): 64
+// Four kernels.  fuse_warp_kernel (K1 without the epilogue): 64
 // consecutive voxels of one sample in (z, y, x) order a block, 4 warps,
 // warp w owns rows 16w..16w+15; each lane reads 16-byte channel vectors of
 // a corner row, so a warp reads 512 contiguous bytes of it.
@@ -83,6 +84,10 @@
 // Python (ops/pallas_fuse_warp.py::plan_epilogue); the entry refuses a
 // launch whose byte count differs from the kernel's.
 //
+// fuse_warp_epi_f32 (K1 with the epilogue on an f32 history) runs both
+// products on the FP32 cores, see its definition; its plan is
+// ops/pallas_fuse_warp.py::plan_epilogue_f32.
+//
 // The warp, reset and ring update do the same f32 operations in the same
 // order as the plain version, under --fmad=false: the new history is
 // bit-identical to it.
@@ -134,6 +139,72 @@ template <> struct Vec<float> {
   }
 };
 
+// The 8 corner rows of voxel v of sample b under the flow m (rows 0..2
+// of the 4x4, index units), -1 outside the volume, and their tent weights
+// rounded to T, into crow[8] and cw[8].
+template <typename T>
+__device__ void corner_table(const float* m, int b, int v, int Z, int Y,
+                             int X, int* crow, float* cw) {
+  for (int k = 0; k < 8; ++k) {
+    crow[k] = -1;
+    cw[k] = 0.f;
+  }
+  if (v >= Z * Y * X) return;
+  const float gx = (float)(v % X), gy = (float)((v / X) % Y);
+  const float gz = (float)(v / (X * Y));
+  const float xs = m[0] * gx + m[1] * gy + m[3] + m[2] * gz;
+  const float ys = m[4] * gx + m[5] * gy + m[7] + m[6] * gz;
+  const float zs = m[8] * gx + m[9] * gy + m[11] + m[10] * gz;
+  const float x0 = floorf(xs), y0 = floorf(ys), z0 = floorf(zs);
+  for (int k = 0; k < 8; ++k) {
+    const float ix = x0 + (k & 1), iy = y0 + ((k >> 1) & 1);
+    const float iz = z0 + (k >> 2);
+    if (ix < 0.f || ix > X - 1 || iy < 0.f || iy > Y - 1 || iz < 0.f ||
+        iz > Z - 1)
+      continue;
+    const float w = (1.f - fabsf(xs - ix)) * (1.f - fabsf(ys - iy)) *
+                    (1.f - fabsf(zs - iz));
+    crow[k] = ((b * Z + (int)iz) * Y + (int)iy) * X + (int)ix;
+    cw[k] = Vec<T>::round(w);
+  }
+}
+
+// One 16-byte vector, channels cc..cc + VN of slot t, of voxel v of
+// sample b: the warp of its corner rows (crow, cw) and the start reset
+// (s) into w0, and the ring update (mk: t is the slot overwritten) into
+// the new history.  Returns the voxel's (y, x, z)-major index.
+template <typename T>
+__device__ __forceinline__ int64_t warp_vector(
+    const T* hist, const T* curr, T* new_hist, const int* crow,
+    const float* cw, int b, int v, int Z, int Y, int X, int C, int TC,
+    int t, int cc, float s, float mk, float* w0) {
+  constexpr int VN = Vec<T>::N;
+  float acc[VN] = {};
+  for (int k = 0; k < 8; ++k) {
+    const int row = crow[k];
+    if (row < 0) continue;
+    const float w = cw[k];
+    float f[VN];
+    Vec<T>::unpack(*reinterpret_cast<const uint4*>(
+                       hist + (int64_t)row * TC + t * C + cc),
+                   f);
+#pragma unroll
+    for (int j = 0; j < VN; ++j) acc[j] += w * f[j];
+  }
+  const int x = v % X, y = (v / X) % Y, z = v / (X * Y);
+  const int64_t vox = (((int64_t)b * Y + y) * X + x) * Z + z;
+  float cf[VN], hv[VN];
+  Vec<T>::unpack(*reinterpret_cast<const uint4*>(curr + vox * C + cc), cf);
+#pragma unroll
+  for (int j = 0; j < VN; ++j) {
+    w0[j] = acc[j] * (1.f - s) + cf[j] * s;
+    hv[j] = w0[j] * (1.f - mk) + cf[j] * mk;
+  }
+  *reinterpret_cast<uint4*>(new_hist + ((int64_t)b * Z * Y * X + v) * TC +
+                            t * C + cc) = Vec<T>::pack(hv);
+  return vox;
+}
+
 struct Args {
   const void* hist;   // (B, Z, Y, X, T*C)
   const void* curr;   // (B, Y, X, Z, C), ring update only
@@ -163,33 +234,9 @@ __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
   float* cw = reinterpret_cast<float*>(crow + kRows * 8);
 
   // corner rows and weights of this warp's voxels
-  const float* m = a.mat + b * 12;
-  if (lane < 16) {
-    const int r = r0 + lane, v = v0 + r;
-    for (int k = 0; k < 8; ++k) {
-      crow[r * 8 + k] = -1;
-      cw[r * 8 + k] = 0.f;
-    }
-    if (v < V) {
-      const float gx = (float)(v % X), gy = (float)((v / X) % Y);
-      const float gz = (float)(v / (X * Y));
-      const float xs = m[0] * gx + m[1] * gy + m[3] + m[2] * gz;
-      const float ys = m[4] * gx + m[5] * gy + m[7] + m[6] * gz;
-      const float zs = m[8] * gx + m[9] * gy + m[11] + m[10] * gz;
-      const float x0 = floorf(xs), y0 = floorf(ys), z0 = floorf(zs);
-      for (int k = 0; k < 8; ++k) {
-        const float ix = x0 + (k & 1), iy = y0 + ((k >> 1) & 1);
-        const float iz = z0 + (k >> 2);
-        if (ix < 0.f || ix > X - 1 || iy < 0.f || iy > Y - 1 || iz < 0.f ||
-            iz > Z - 1)
-          continue;
-        const float w = (1.f - fabsf(xs - ix)) * (1.f - fabsf(ys - iy)) *
-                        (1.f - fabsf(zs - iz));
-        crow[r * 8 + k] = ((b * Z + (int)iz) * Y + (int)iy) * X + (int)ix;
-        cw[r * 8 + k] = Vec<T>::round(w);
-      }
-    }
-  }
+  if (lane < 16)
+    corner_table<T>(a.mat + b * 12, b, v0 + r0 + lane, Z, Y, X,
+                    crow + (r0 + lane) * 8, cw + (r0 + lane) * 8);
   __syncthreads();
 
   const float s = a.start[b];
@@ -200,36 +247,14 @@ __global__ void __launch_bounds__(kThreads) fuse_warp_kernel(Args a) {
     for (int e = lane; e < 16 * nvec; e += 32) {
       const int r = r0 + e / nvec, cv = e % nvec;
       const int v = v0 + r;
-      float acc[VN] = {};
       if (v >= V) continue;
-      for (int k = 0; k < 8; ++k) {
-        const int row = crow[r * 8 + k];
-        if (row < 0) continue;
-        const float w = cw[r * 8 + k];
-        float f[VN];
-        Vec<T>::unpack(*reinterpret_cast<const uint4*>(
-                           hist + (int64_t)row * TC + t * C + cv * VN),
-                       f);
-#pragma unroll
-        for (int j = 0; j < VN; ++j) acc[j] += w * f[j];
-      }
-      const int x = v % X, y = (v / X) % Y, z = v / (X * Y);
-      const int64_t vox = (((int64_t)b * Y + y) * X + x) * Z + z;
-      float cf[VN], hv[VN];
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(
-                         static_cast<const T*>(a.curr) + vox * C + cv * VN),
-                     cf);
-#pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        const float w0 = acc[j] * (1.f - s) + cf[j] * s;
-        hv[j] = w0 * (1.f - mk) + cf[j] * mk;
-        acc[j] = w0;
-      }
-      *reinterpret_cast<uint4*>(static_cast<T*>(a.new_hist) +
-                                ((int64_t)b * V + v) * TC + t * C +
-                                cv * VN) = Vec<T>::pack(hv);
+      float w0[VN];
+      const int64_t vox = warp_vector<T>(
+          hist, static_cast<const T*>(a.curr), static_cast<T*>(a.new_hist),
+          crow + r * 8, cw + r * 8, b, v, Z, Y, X, C, TC, t, cv * VN, s, mk,
+          w0);
       *reinterpret_cast<uint4*>(static_cast<T*>(a.slots) + vox * TC +
-                                t * C + cv * VN) = Vec<T>::pack(acc);
+                                t * C + cv * VN) = Vec<T>::pack(w0);
     }
   }
 }
@@ -554,6 +579,122 @@ int launch_epi(const EpiArgs& a, const bf16* kc_t, const bf16* ws_t, int B,
   const int V = a.Z * a.Y * a.X;
   const dim3 grid((V + kEpiRows - 1) / kEpiRows, B);
   fuse_warp_epi<C, F><<<grid, kEpiThreads, L::kSmem, stream>>>(km, wm, a);
+  return (int)cudaGetLastError();
+}
+
+// -------------------------------------------- K1 epilogue in float32
+// An f32 history (wgmma takes no f32 operands; tf32 would round them):
+// both products on the FP32 cores.  A block of kRows = 64 voxels, 128
+// threads; kc staged in shared memory once.  Per slot the 4 warps
+// gather their 16 rows' warped vectors (warp_vector, as fuse_warp_kernel)
+// into the tile A, then thread i owns row i / 2 and the output columns
+// of parity i % 2: Y1 = relu(A @ kc + brow) into the tile Y1 and, after a
+// barrier, ACC += Y1 @ ws[t] with ws read from device memory (each value
+// broadcast to the 32 threads of a warp that share its column parity).
+// ACC (F / 2 registers a thread) is written once after the T slots.
+template <int C, int F>
+struct EpiF32Layout {
+  static constexpr int LD = C + 4;  // A and Y1 row stride, 16-byte rows
+  static constexpr int oA = kRows * 8 * 8;  // after the corner table
+  static constexpr int oY = oA + kRows * LD * 4;
+  static constexpr int oK = oY + kRows * LD * 4;
+  static constexpr int kSmem = oK + C * C * 4;
+  static_assert(C % 4 == 0 && C % 2 == 0 && F % 2 == 0, "C, F");
+};
+
+struct EpiF32Args {
+  const float* hist;    // (B, Z, Y, X, T*C)
+  const float* curr;    // (B, Y, X, Z, C)
+  const float* mat;     // (B, 12)
+  const float* start;   // (B,)
+  const int32_t* hsel;  // (B,)
+  const float* kc;      // (C, C) input channel, output channel
+  const float* brow;    // (B, T, C) tvec * ke + kb
+  const float* ws;      // (B, T*C, F) in ring-slot order
+  float* new_hist;      // (B, Z, Y, X, T*C)
+  float* fused;         // (B, Y, X, Z, F)
+  int Z, Y, X, T;
+};
+
+template <int C, int F>
+__global__ void __launch_bounds__(kThreads)
+    fuse_warp_epi_f32(const EpiF32Args a) {
+  typedef EpiF32Layout<C, F> L;
+  constexpr int VN = Vec<float>::N, NV = C / VN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* crow = reinterpret_cast<int*>(smem);            // [kRows][8]
+  float* cw = reinterpret_cast<float*>(crow + kRows * 8);
+  float* As = reinterpret_cast<float*>(smem + L::oA);  // [kRows][LD]
+  float* Ys = reinterpret_cast<float*>(smem + L::oY);  // [kRows][LD]
+  float* Ks = reinterpret_cast<float*>(smem + L::oK);  // [C][C], kc[c][j]
+  const int b = blockIdx.y, T = a.T, TC = T * C;
+  const int Z = a.Z, Y = a.Y, X = a.X, V = Z * Y * X;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16, v0 = blockIdx.x * kRows;
+  for (int i = threadIdx.x; i < C * C; i += kThreads) Ks[i] = a.kc[i];
+  if (lane < 16)
+    corner_table<float>(a.mat + b * 12, b, v0 + r0 + lane, Z, Y, X,
+                        crow + (r0 + lane) * 8, cw + (r0 + lane) * 8);
+  __syncthreads();
+
+  const float s = a.start[b];
+  const int hsel = a.hsel[b];
+  const int r = threadIdx.x / 2, h = threadIdx.x % 2;
+  float acc[F / 2];
+#pragma unroll
+  for (int i = 0; i < F / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    const float mk = (t == hsel) ? 1.f : 0.f;
+    for (int e = lane; e < 16 * NV; e += 32) {
+      const int rr = r0 + e / NV, cv = e % NV, v = v0 + rr;
+      float w0[VN] = {};
+      if (v < V)
+        warp_vector<float>(a.hist, a.curr, a.new_hist, crow + rr * 8,
+                           cw + rr * 8, b, v, Z, Y, X, C, TC, t, cv * VN, s,
+                           mk, w0);
+      *reinterpret_cast<float4*>(As + rr * L::LD + cv * VN) =
+          make_float4(w0[0], w0[1], w0[2], w0[3]);
+    }
+    __syncthreads();  // A written; the last slot's Y1 read
+    float y[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) y[i] = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float x = As[r * L::LD + c];
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) y[i] += x * Ks[c * C + h + 2 * i];
+    }
+    const float* br = a.brow + ((int64_t)b * T + t) * C;
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i)
+      Ys[r * L::LD + h + 2 * i] = fmaxf(y[i] + br[h + 2 * i], 0.f);
+    __syncthreads();  // Y1 written; A read
+    const float* w = a.ws + ((int64_t)b * TC + t * C) * F + h;
+    for (int c = 0; c < C; ++c) {
+      const float x = Ys[r * L::LD + c];
+#pragma unroll
+      for (int i = 0; i < F / 2; ++i) acc[i] += x * w[c * F + 2 * i];
+    }
+  }
+  const int v = v0 + r;
+  if (v >= V) return;
+  const int x = v % X, y = (v / X) % Y, z = v / (X * Y);
+  float* out = a.fused + ((((int64_t)b * Y + y) * X + x) * Z + z) * F + h;
+#pragma unroll
+  for (int i = 0; i < F / 2; ++i) out[2 * i] = acc[i];
+}
+
+template <int C, int F>
+int launch_f32_epi(const EpiF32Args& a, int B, int smem,
+                   cudaStream_t stream) {
+  typedef EpiF32Layout<C, F> L;
+  if (smem != L::kSmem) return (int)cudaErrorInvalidValue;
+  static uint64_t smem_set = 0;
+  const int r = allow_smem(fuse_warp_epi_f32<C, F>, L::kSmem, smem_set);
+  if (r != 0) return r;
+  const int V = a.Z * a.Y * a.X;
+  const dim3 grid((V + kRows - 1) / kRows, B);
+  fuse_warp_epi_f32<C, F><<<grid, kThreads, L::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -902,20 +1043,25 @@ int launch_plan(const BoxArgs& a, const int* p, int grid, int smem,
 }  // namespace
 
 // K1 without the epilogue: the warped slots (B, Y, X, Z, T*C) and the new
-// history.  bf16 history and curr, C a multiple of 8.
+// history.  bf16 (is_bf16) or f32 history and curr, C a multiple of 8 or
+// 4 (a 16-byte vector).
 extern "C" int fbbev_fuse_warp(const void* hist, const void* curr,
                                const float* mat, const float* start,
                                const int32_t* hsel, void* new_hist,
                                void* slots, int B, int Z, int Y, int X,
-                               int C, int T, void* stream) {
-  if (C % 8 || B < 0 || Z < 0 || Y < 0 || X < 0 || T < 0)
+                               int C, int T, int is_bf16, void* stream) {
+  if (C % (is_bf16 ? 8 : 4) || B < 0 || Z < 0 || Y < 0 || X < 0 || T < 0)
     return (int)cudaErrorInvalidValue;
   Args a{hist, curr, mat, start, hsel, new_hist, slots, Z, Y, X, C, T};
   const int V = Z * Y * X;
   if (B == 0 || V == 0 || T == 0) return 0;
   const dim3 grid((V + kRows - 1) / kRows, B);
-  fuse_warp_kernel<bf16>
-      <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
+  if (is_bf16)
+    fuse_warp_kernel<bf16>
+        <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
+  else
+    fuse_warp_kernel<float>
+        <<<grid, kThreads, kRows * 8 * 8, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -948,6 +1094,30 @@ extern "C" int fbbev_fuse_warp_epi(const void* hist, const void* curr,
   cudaStream_t st = (cudaStream_t)stream;
   if (C == 80 && F == 160) return launch_epi<80, 160>(a, k, w, B, smem, st);
   if (C == 64 && F == 128) return launch_epi<64, 128>(a, k, w, B, smem, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 with the epilogue on an f32 history: as fbbev_fuse_warp_epi, every
+// tensor f32, kc (C, C) and ws (B, T*C, F) as the plain version takes
+// them; smem the plan's bytes.  (C, F) = (80, 160) or (64, 128).
+extern "C" int fbbev_fuse_warp_epi_f32(
+    const float* hist, const float* curr, const float* mat,
+    const float* start, const int32_t* hsel, const float* kc,
+    const float* brow, const float* ws, float* new_hist, float* fused,
+    int B, int Z, int Y, int X, int C, int T, int F, int smem,
+    void* stream) {
+  const uintptr_t align = (uintptr_t)hist | (uintptr_t)curr |
+                          (uintptr_t)new_hist;
+  if (align % 16 || B < 0 || Z < 0 || Y < 0 || X < 0 || T < 0)
+    return (int)cudaErrorInvalidValue;
+  const int V = Z * Y * X;
+  if (B == 0 || V == 0) return 0;
+  if (T == 0) return (int)cudaErrorInvalidValue;
+  const EpiF32Args a{hist, curr, mat, start, hsel, kc, brow, ws,
+                     new_hist, fused, Z, Y, X, T};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 80 && F == 160) return launch_f32_epi<80, 160>(a, B, smem, st);
+  if (C == 64 && F == 128) return launch_f32_epi<64, 128>(a, B, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

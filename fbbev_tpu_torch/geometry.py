@@ -33,6 +33,12 @@ class CamParams(NamedTuple):
                            .to(device) for t in self))
 
 
+def rot_z(angle_rad: float) -> np.ndarray:
+    """Rotation about +z (the BEV-plane rotation), float32."""
+    c, s = np.cos(angle_rad), np.sin(angle_rad)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
+
+
 def gen_dx_bx(xb: Sequence[float], yb: Sequence[float],
               zb: Sequence[float]):
     """Grid cell size ``dx``, first-cell centre ``bx``, cell counts ``nx``."""

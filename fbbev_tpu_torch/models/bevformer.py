@@ -272,12 +272,19 @@ class BackwardProjection(nn.Module):
 
     def __init__(self, bev_h: int, bev_w: int, embed_dims: int,
                  feedforward_channels: int, pos_num_feats: int,
-                 grid_config: dict, input_size: Tuple[int, int],
+                 grid_config: Optional[dict], input_size: Tuple[int, int],
                  dbound: Sequence[float],
-                 max_queries_per_cam: Optional[int] = None):
+                 max_queries_per_cam: Optional[int] = None,
+                 pc_range: Sequence[float] = (-40, -40, -1.0, 40, 40, 5.4)):
         super().__init__()
         self.bev_h, self.bev_w = bev_h, bev_w
-        self.grid_config = grid_config
+        self.pc_range = tuple(pc_range)
+        # without a grid, the anchors span pc_range (JAX ``_grid_cfg``)
+        r = self.pc_range
+        self.grid_config = grid_config or {
+            "x": (r[0], r[3], (r[3] - r[0]) / bev_w),
+            "y": (r[1], r[4], (r[4] - r[1]) / bev_h),
+            "z": (r[2], r[5], 1.6)}
         self.input_size = tuple(input_size)
         self.dbound = tuple(dbound)
         self.max_queries_per_cam = max_queries_per_cam

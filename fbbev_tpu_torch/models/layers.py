@@ -338,24 +338,30 @@ def upsample_nearest(x, out_hw: Tuple[int, int]):
 def upsample_int_axis(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
     """Exact integer-factor linear upsample along one axis
     (align_corners=False, half-pixel centres, edge clamp): phase k of the
-    output samples input coordinate (k + .5)/s - .5, a fixed 2-tap lerp
-    with Python-float weights, each product and the sum in x's type.
-    The port's copy of ``fbbev_tpu/models/layers.py:519``."""
+    output samples input coordinate (k + .5)/s - .5, a fixed 2-tap lerp,
+    each product and the sum in x's type.  Each weight is first rounded
+    to x's type, as JAX rounds a Python float to a bf16 operand's type
+    (PyTorch would keep it in float32).  The port's copy of
+    ``fbbev_tpu/models/layers.py:519``."""
     if s == 1:
         return x
     n = x.shape[axis]
     i = torch.arange(n, device=x.device)
     prev = x.index_select(axis, (i - 1).clamp(min=0))
     nxt = x.index_select(axis, (i + 1).clamp(max=n - 1))
+
+    def rnd(w: float) -> float:
+        return float(torch.tensor(w, dtype=x.dtype))
+
     phases = []
     for k in range(s):
         c = (k + 0.5) / s - 0.5
         if c < 0:
             w = c + 1.0  # lerp(prev, x, w)
-            phases.append((1.0 - w) * prev + w * x)
+            phases.append(rnd(1.0 - w) * prev + rnd(w) * x)
         else:
             w = c  # lerp(x, next, w)
-            phases.append((1.0 - w) * x + w * nxt)
+            phases.append(rnd(1.0 - w) * x + rnd(w) * nxt)
     shape = list(x.shape)
     shape[axis] *= s
     return torch.stack(phases, dim=axis + 1).reshape(shape)

@@ -18,8 +18,12 @@ cat-conv accumulator in registers; ``kc`` and ``ws`` arrive by TMA from
 the K-major copies :func:`relayout_epilogue` makes.  :func:`plan_epilogue`
 is the kernel's plan (tile, stages, shared-memory bytes) in Python: the
 wrapper checks it and hands its byte count to the entry, which refuses a
-launch whose count differs from the kernel's.  Without the epilogue: one
-block of 64 voxels, the 8 corner rows read directly.  Bound on the card:
+launch whose count differs from the kernel's.  An f32 history (the JAX
+kernel takes one too) goes to ``fuse_warp_epi_f32``: wgmma has no f32
+operands, so a block of 64 voxels gathers each slot into shared memory
+and runs both products on the FP32 cores (:func:`epilogue_f32_smem`).
+Without the epilogue, bf16 or f32: one block of 64 voxels, the 8 corner
+rows read directly.  Bound on the card:
 bytes (the history read once and the new history written once, 2 x 205 MB
 in bf16 at the flagship): about 0.14 ms on an H100 SXM
 (``chip_smoke.py``).  The TPU kernel is exact inside its locality contract
@@ -40,7 +44,8 @@ import torch
 
 from fbbev_tpu_torch.ops import _cuda
 
-launches = 0
+launches = 0       # bf16 epilogue and no-epilogue launches
+f32_launches = 0   # fuse_warp_epi_f32 launches (an f32 history)
 
 BM = 128          # voxels of a block of the epilogue kernel
 A_STAGES = 2      # its ring of warped-slot tiles
@@ -84,6 +89,17 @@ def plan_epilogue(B: int, Z: int, Y: int, X: int, C: int,
                          f"shared memory, more than {SMEM_LIMIT}")
     return EpiPlan(BM, ks, A_STAGES, W_STAGES, smem,
                    (-(-(Z * Y * X) // BM), B))
+
+
+def epilogue_f32_smem(C: int, F: int) -> int:
+    """Shared-memory bytes of ``fuse_warp_epi_f32<C, F>`` (an f32
+    history): the corner table of 64 voxels, the tiles A and Y1 (64 rows
+    of C + 4 floats each) and kc (C x C floats).  Raises on the (C, F)
+    the kernel is not instantiated for."""
+    if (C, F) not in EPI_SHAPES:
+        raise ValueError(f"the CUDA fuse_warp epilogue takes (C, F) in "
+                         f"{EPI_SHAPES}, not {(C, F)}")
+    return 64 * 8 * 8 + 2 * 64 * (C + 4) * 4 + C * C * 4
 
 
 def _corners(mat: torch.Tensor, Z: int, Y: int, X: int):
@@ -189,8 +205,10 @@ def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
 
     Returns ``(slots (B, Y, X, Z, T*C), new_hist)`` without the epilogue,
     ``(fused_part (B, Y, X, Z, F) f32, new_hist)`` with it.  CUDA tensors
-    launch the kernel (bf16 history, C a multiple of 8; with the epilogue
-    (C, F) in :data:`EPI_SHAPES`) and raise on inputs it does not take;
+    launch the kernel (a bf16 history with C a multiple of 8, the
+    epilogue's products on wgmma; or an f32 one with C a multiple of 4,
+    the products on the FP32 cores; with the epilogue (C, F) in
+    :data:`EPI_SHAPES`) and raise on inputs it does not take;
     CPU tensors take the plain version.  Raises ``RuntimeError`` when
     grad mode is on and an input requires grad: training fuses history
     with ``FBOCC.fuse_history_aged``.
@@ -203,9 +221,14 @@ def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
     B, Z, Y, X, TC = hist.shape
     C = curr.shape[-1]
     T = TC // C
-    if hist.dtype != torch.bfloat16 or curr.dtype != torch.bfloat16:
-        raise ValueError("the CUDA fuse_warp takes a bf16 history and curr")
-    if T * C != TC or curr.shape != (B, Y, X, Z, C) or C % 8:
+    if hist.dtype not in (torch.bfloat16, torch.float32) or \
+            curr.dtype != hist.dtype:
+        raise ValueError(f"the CUDA fuse_warp takes a bf16 or f32 history "
+                         f"and curr of its dtype, not {hist.dtype} and "
+                         f"{curr.dtype}")
+    bf16 = hist.dtype == torch.bfloat16
+    if T * C != TC or curr.shape != (B, Y, X, Z, C) or C % (8 if bf16
+                                                             else 4):
         raise ValueError(f"shapes {hist.shape} {curr.shape}")
     hist, curr = hist.contiguous(), curr.contiguous()
     mrows = mat[:, :3, :].float().reshape(B, 12).contiguous()
@@ -220,9 +243,9 @@ def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
         if not _aligned(*common, slots):
             raise ValueError("every fuse_warp input must be on the card, "
                              "16-byte aligned")
-        _cuda.check(_cuda.entry("fuse_warp", "fbbev_fuse_warp", 7, 6)(
+        _cuda.check(_cuda.entry("fuse_warp", "fbbev_fuse_warp", 7, 7)(
             *(t.data_ptr() for t in common), slots.data_ptr(), B, Z, Y, X,
-            C, T, stream), "fuse_warp")
+            C, T, int(bf16), stream), "fuse_warp")
         launches += 1
         return slots, new_hist
     F = epilogue["ws"].shape[-1]
@@ -230,11 +253,28 @@ def fuse_warp(hist: torch.Tensor, curr: torch.Tensor, mat: torch.Tensor,
             tuple(epilogue["kc"].shape) != (C, C):
         raise ValueError(f"epilogue kc {tuple(epilogue['kc'].shape)} ws "
                          f"{tuple(epilogue['ws'].shape)} for C={C}, T={T}")
-    plan = plan_epilogue(B, Z, Y, X, C, F)
-    kc_t, ws_t = relayout_epilogue(epilogue, B, T, C)
     brow = _brow(epilogue).contiguous()
     fused = torch.empty(B, Y, X, Z, F, dtype=torch.float32,
                         device=hist.device)
+    if not bf16:
+        smem = epilogue_f32_smem(C, F)
+        kc = epilogue["kc"].float().contiguous()
+        ws = epilogue["ws"].float().contiguous()
+        if not _aligned(*common, kc, ws, brow, fused):
+            raise ValueError("every fuse_warp input must be on the card, "
+                             "16-byte aligned")
+        _cuda.check(_cuda.entry("fuse_warp", "fbbev_fuse_warp_epi_f32", 10,
+                                8)(
+            hist.data_ptr(), curr.data_ptr(), mrows.data_ptr(),
+            start_f.data_ptr(), hsel_i.data_ptr(), kc.data_ptr(),
+            brow.data_ptr(), ws.data_ptr(), new_hist.data_ptr(),
+            fused.data_ptr(), B, Z, Y, X, C, T, F, smem, stream),
+            "fuse_warp")
+        global f32_launches
+        f32_launches += 1
+        return fused, new_hist
+    plan = plan_epilogue(B, Z, Y, X, C, F)
+    kc_t, ws_t = relayout_epilogue(epilogue, B, T, C)
     if not _aligned(*common, kc_t, ws_t, brow, fused):
         raise ValueError("every fuse_warp input must be on the card, "
                          "16-byte aligned")

@@ -6,17 +6,20 @@ construction: the voxel ranks and K2's sorted interval plan (on the host,
 float32 numpy), the backward projection's rebatch indices, anchors,
 depth one-hots and dense depth-sampling matrix, and the camera MLP input.
 Each call then runs one frame on the device and carries the temporal
-state.  Three hand-written kernels run per frame by default: K2 (voxel
-pool), K3 (deformable sampling, twice: self- and cross-attention) and K1
-(history warp with the conv epilogue).  The model's route arguments add
-others: with ``fuse_warp=False`` the history stays age-ordered (same
-shape, other slot order) and K5 warps it in place of K1; ``pallas_conv3d``
-runs the stride-1 3x3x3 convs on K6; ``occ_tail`` and ``occ_fuse`` run
-the occ head's tail on K8 or its blend on K9.
+state; :meth:`FixedRigPipeline.benchmark` times a stream of them.  Three
+hand-written kernels run per frame by default: K2 (voxel pool), K3
+(deformable sampling, twice: self- and cross-attention; not without the
+backward projection) and K1 (history warp with the conv epilogue).  The
+model's route arguments add others: with ``fuse_warp=False`` the history
+stays age-ordered (same shape, other slot order) and K5 warps it in place
+of K1; ``pallas_conv3d`` runs the stride-1 3x3x3 convs on K6;
+``occ_tail`` and ``occ_fuse`` run the occ head's tail on K8 or its blend
+on K9.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -41,6 +44,9 @@ class FixedRigPipeline:
     Runs on the model's device."""
 
     def __init__(self, model: FBOCC, cam: geometry.CamParams):
+        if model.occupancy_head is None:
+            raise ValueError("FixedRigPipeline serves occupancy labels: the "
+                             "model has no occupancy head")
         self.model = model.eval()
         self.device = next(model.parameters()).device
         cam_cpu = cam.to("cpu")
@@ -58,9 +64,11 @@ class FixedRigPipeline:
             coor, batch_idx, fp.grid_lower, fp.grid_interval, self.grid, B)
         self.pool_plan = plan_pool(self.ranks, B, N, fp.D, fH, fW,
                                    self.grid).to(self.device)
-        terms = model.backward_projection.static_terms(
-            cam_cpu, model.depth_channels, (fH, fW))
-        self.bwd_terms = {k: v.to(self.device) for k, v in terms.items()}
+        self.bwd_terms = None
+        if model.backward_projection is not None:
+            terms = model.backward_projection.static_terms(
+                cam_cpu, model.depth_channels, (fH, fW))
+            self.bwd_terms = {k: v.to(self.device) for k, v in terms.items()}
         self.mlp_input = get_mlp_input(self.cam)
         self.state = init_temporal_state(
             B, self.grid, model.history_cat_num,
@@ -77,18 +85,16 @@ class FixedRigPipeline:
         with stage("voxel_pool"):
             bev = lss_voxel_pool_planned(self.pool_plan, depth.contiguous(),
                                          context.contiguous())
-        with stage("backward_projection"):
-            lss_bev = bev.mean(dim=3)
-            refined = mdl.backward_projection(
-                context, lss_bev.to(mdl.dtype), depth, self.bwd_terms)
-            bev = refined.float()[:, :, :, None, :] + bev
+        if mdl.backward_projection is not None:
+            with stage("backward_projection"):
+                lss_bev = bev.mean(dim=3)
+                refined = mdl.backward_projection(
+                    context, lss_bev.to(mdl.dtype), depth, self.bwd_terms)
+                bev = refined.float()[:, :, :, None, :] + bev
         with stage("fuse_history"):
-            if mdl.fuse_warp:
-                fused, new_state = mdl.fuse_history(bev, state, meta,
-                                                    self.cam.bda)
-            else:
-                fused, new_state, _ = mdl.fuse_history_aged(
-                    bev, state, meta, self.cam.bda)
+            fuse = (mdl.fuse_history if mdl.fuse_warp
+                    else mdl.fuse_history_aged)
+            fused, new_state, _ = fuse(bev, state, meta, self.cam.bda)
         with stage("bev_encoder"):
             vox = mdl.img_bev_encoder_neck(mdl.img_bev_encoder_backbone(
                 fused.permute(0, 4, 1, 2, 3)))
@@ -112,3 +118,33 @@ class FixedRigPipeline:
         labels, self.state = self._fwd(torch.as_tensor(imgs).to(dev), meta,
                                        self.state)
         return labels
+
+    def benchmark(self, iters: int = 20,
+                  include_transfer: bool = False) -> float:
+        """Frames per second of this pipeline on its device, as the JAX
+        ``FixedRigPipeline.benchmark``: three numpy-seeded frames staged on
+        the device (kept on the host with ``include_transfer``, so that
+        each step copies its images), a sequence start and three steady
+        frames, then ``iters`` steady frames on the host clock, ended by
+        a device sync."""
+        rng = np.random.RandomState(0)
+        H, W = self.model.input_size
+        imgs = [torch.from_numpy(rng.randn(
+            self.batch, self.model.num_cams, H, W, 3).astype(np.float32))
+            for _ in range(3)]
+        if not include_transfer:
+            imgs = [im.to(self.device) for im in imgs]
+        self(imgs[0], True)
+        self._sync()
+        for im in imgs:
+            self(im, False)
+        self._sync()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            self(imgs[i % 3], False)
+        self._sync()
+        return self.batch * iters / (time.perf_counter() - t0)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -135,14 +135,17 @@ class Trainer:
                  optimizer: Optional[Optimizer] = None,
                  ema_base_decay: float = 0.999, ema_init_updates: int = 0,
                  depth_loss_weight: float = 1.0, num_classes: int = 19,
-                 use_depth_supervision: bool = True,
+                 use_depth_supervision: Optional[bool] = None,
                  frozen: Tuple[str, ...] = (), lovasz: str = "hist"):
         self.model = model
         self.optimizer = optimizer or make_optimizer()
         self.ema_base_decay = ema_base_decay
         self.ema_init_updates = ema_init_updates
         self.depth_loss_weight = depth_loss_weight
-        self.use_depth_supervision = use_depth_supervision
+        # None: the model's own switch (an FBOCC's ``use_depth_supervision``)
+        self.use_depth_supervision = (
+            getattr(model, "use_depth_supervision", True)
+            if use_depth_supervision is None else use_depth_supervision)
         # top-level modules whose BatchNorm statistics stay put (pair with
         # make_optimizer(frozen=...))
         self.frozen = tuple(frozen)

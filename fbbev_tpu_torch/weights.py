@@ -18,7 +18,7 @@ The rules are this package's own copy of the flagship FB-OCC rules of
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -83,21 +83,25 @@ class _Exporter:
         self.bn(src_bn, dst + ("bn",))
 
 
-def _resnet50(b: _Exporter, src: str, dst: str):
+def _resnet(b, src: str, dst: str, spec: dict):
+    """ResNet stages: ``spec['blocks']`` blocks per stage, each of
+    ``spec['convs']`` convs (3 for bottlenecks, 2 for basic blocks)."""
     b.convbn(f"{src}.conv1", f"{src}.bn1", (dst, "stem"))
-    for stage, n in enumerate((3, 4, 6, 3)):
+    for stage, n in enumerate(spec["blocks"]):
         for i in range(n):
             p = f"{src}.layer{stage + 1}.{i}"
             d = (dst, f"layer{stage + 1}_{i}")
-            for c in (1, 2, 3):
+            for c in range(1, spec["convs"] + 1):
                 b.convbn(f"{p}.conv{c}", f"{p}.bn{c}", d + (f"conv{c}",))
             if b._has(d + ("downsample", "conv", "kernel")):
                 b.convbn(f"{p}.downsample.0", f"{p}.downsample.1",
                          d + ("downsample",))
 
 
-def _rules(b: _Exporter) -> None:
-    _resnet50(b, "img_backbone", "img_backbone")
+def _rules(b, spec: dict) -> None:
+    """Every rule of an FB-OCC of structure ``spec`` (:func:`_jax_spec`,
+    :func:`_model_spec`)."""
+    _resnet(b, "img_backbone", "img_backbone", spec)
     for i in range(2):
         b.conv(f"img_neck.lateral_convs.{i}.conv", ("img_neck", f"lateral{i}"))
     b.conv("img_neck.fpn_convs.0.conv", ("img_neck", "fpn0"))
@@ -127,25 +131,8 @@ def _rules(b: _Exporter) -> None:
     b.convbn(f"{aspp}.conv1", f"{aspp}.bn1", A + ("proj",))
     b.conv(f"{dn}.depth_conv.4", D + ("depth_conv",))
 
-    bp, P = "backward_projection", ("backward_projection",)
-    b.raw(f"{bp}.bev_embedding.weight", P + ("bev_embedding",))
-    for e in ("row_embed", "col_embed"):
-        b.raw(f"{bp}.positional_encoding.{e}.weight",
-              P + ("positional_encoding", e, "embedding"))
-    layer = f"{bp}.transformer.encoder.layers.0"
-    L = P + ("layer0",)
-    for nm in ("sampling_offsets", "attention_weights", "value_proj",
-               "output_proj"):
-        b.linear(f"{layer}.attentions.0.{nm}", L + ("self_attn", nm))
-    for nm in ("sampling_offsets", "attention_weights", "value_proj"):
-        b.linear(f"{layer}.attentions.1.deformable_attention.{nm}",
-                 L + ("cross_attn", "deformable_attention", nm))
-    b.linear(f"{layer}.attentions.1.output_proj",
-             L + ("cross_attn", "output_proj"))
-    b.linear(f"{layer}.ffns.0.layers.0.0", L + ("ffn", "fc1"))
-    b.linear(f"{layer}.ffns.0.layers.1", L + ("ffn", "fc2"))
-    for i in range(3):
-        b.layernorm(f"{layer}.norms.{i}", L + (f"norm{i + 1}",))
+    if spec["backward_projection"]:
+        _backward_projection_rules(b)
 
     for src, dst in (("history_keyframe_time_conv", "history_time_conv"),
                      ("history_keyframe_cat_conv", "history_cat_conv")):
@@ -170,7 +157,30 @@ def _rules(b: _Exporter) -> None:
             b.convbn(f"{nk}.{kind}.{i}.0.conv", f"{nk}.{kind}.{i}.0.bn",
                      K + (f"{name}{i}",), ndim=3)
 
-    occ_head_rules(b, "occupancy_head.", ("occupancy_head",))
+    if spec["occupancy_head"]:
+        occ_head_rules(b, "occupancy_head.", ("occupancy_head",))
+
+
+def _backward_projection_rules(b) -> None:
+    bp, P = "backward_projection", ("backward_projection",)
+    b.raw(f"{bp}.bev_embedding.weight", P + ("bev_embedding",))
+    for e in ("row_embed", "col_embed"):
+        b.raw(f"{bp}.positional_encoding.{e}.weight",
+              P + ("positional_encoding", e, "embedding"))
+    layer = f"{bp}.transformer.encoder.layers.0"
+    L = P + ("layer0",)
+    for nm in ("sampling_offsets", "attention_weights", "value_proj",
+               "output_proj"):
+        b.linear(f"{layer}.attentions.0.{nm}", L + ("self_attn", nm))
+    for nm in ("sampling_offsets", "attention_weights", "value_proj"):
+        b.linear(f"{layer}.attentions.1.deformable_attention.{nm}",
+                 L + ("cross_attn", "deformable_attention", nm))
+    b.linear(f"{layer}.attentions.1.output_proj",
+             L + ("cross_attn", "output_proj"))
+    b.linear(f"{layer}.ffns.0.layers.0.0", L + ("ffn", "fc1"))
+    b.linear(f"{layer}.ffns.0.layers.1", L + ("ffn", "fc2"))
+    for i in range(3):
+        b.layernorm(f"{layer}.norms.{i}", L + (f"norm{i + 1}",))
 
 
 def occ_head_rules(b: _Exporter, src: str, dst: Tuple[str, ...]) -> None:
@@ -198,12 +208,32 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,)
 
 
+def _jax_spec(params: Dict[str, Any]) -> dict:
+    """The structure :func:`_rules` walks, read from a JAX params tree."""
+    bb = params["img_backbone"]
+    blocks = tuple(sum(1 for k in bb if k.startswith(f"layer{i}_"))
+                   for i in range(1, 5))
+    return dict(blocks=blocks, convs=3 if "conv3" in bb["layer1_0"] else 2,
+                backward_projection="backward_projection" in params,
+                occupancy_head="occupancy_head" in params)
+
+
+def _model_spec(model: torch.nn.Module) -> dict:
+    """The structure :func:`_rules` walks, read from a port ``FBOCC``."""
+    bb = model.img_backbone
+    return dict(blocks=tuple(len(getattr(bb, f"layer{i}"))
+                             for i in range(1, 5)),
+                convs=3 if hasattr(bb.layer1[0], "conv3") else 2,
+                backward_projection=model.backward_projection is not None,
+                occupancy_head=model.occupancy_head is not None)
+
+
 def to_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """JAX ``{'params', 'batch_stats'}`` (nested dicts of arrays) -> the
     port's state dict (numpy, PyTorch layouts).  Raises if any JAX leaf
     is left unconverted."""
     b = _Exporter(variables["params"], variables.get("batch_stats", {}))
-    _rules(b)
+    _rules(b, _jax_spec(variables["params"]))
     left = [p for t in ("params", "batch_stats")
             for p in ((t,) + q for q in _leaves(b.trees[t]))
             if p not in b.used]
@@ -223,3 +253,49 @@ def load_jax_variables(model: torch.nn.Module,
             sd[k] = torch.zeros((), dtype=torch.long)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+class _PairFinder:
+    """Runs the rules without weights, recording which port module each
+    JAX conv / BatchNorm path maps to."""
+
+    def __init__(self):
+        self.convs, self.bns = {}, {}
+
+    def _has(self, path) -> bool:
+        return True  # pairs the model lacks are dropped by the caller
+
+    def conv(self, src, dst, ndim=2):
+        self.convs[dst] = src
+
+    def bn(self, src, dst):
+        self.bns[dst] = src
+
+    def convbn(self, src_conv, src_bn, dst, ndim=2):
+        self.conv(src_conv, dst + ("conv",), ndim)
+        self.bn(src_bn, dst + ("bn",))
+
+    def deconv3d(self, src, dst, **_):
+        pass
+
+    linear = layernorm = raw = deconv3d
+
+
+def conv_bn_pairs(model: torch.nn.Module) -> List[Tuple[str, str]]:
+    """(conv, BatchNorm) module names of ``model`` whose JAX counterparts
+    form one ``{conv: {kernel, ...}, bn: ...}`` subtree: those the JAX
+    ``fold_batch_norms`` (``fbbev_tpu/utils/fuse_bn.py``) folds.  A conv
+    and a BatchNorm that sit side by side in one JAX module under other
+    names (the occ head's ``deblock_conv`` / ``deblock_bn``) are no such
+    subtree."""
+    f = _PairFinder()
+    _rules(f, _model_spec(model))
+    names = dict(model.named_modules())
+    pairs = []
+    for dst, conv in f.convs.items():
+        if dst[-1] != "conv" or dst[:-1] + ("bn",) not in f.bns:
+            continue
+        bn = f.bns[dst[:-1] + ("bn",)]
+        if conv in names and bn in names:
+            pairs.append((conv, bn))
+    return pairs

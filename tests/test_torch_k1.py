@@ -87,6 +87,27 @@ def test_k1_epilogue_plan_mirrors_the_kernel():
 def test_k1_epilogue_plan_refuses_other_widths(C, F):
     with pytest.raises(ValueError, match="takes"):
         K1.plan_epilogue(1, 8, 20, 30, C, F)
+    with pytest.raises(ValueError, match="takes"):
+        K1.epilogue_f32_smem(C, F)
+
+
+def test_k1_f32_epilogue_plan_mirrors_the_kernel():
+    """The f32 epilogue kernel (``fuse_warp_epi_f32``): its shared-memory
+    bytes (corner table, A and Y1 tiles of C + 4 floats a row, kc) are the
+    Python plan's at both instantiated (C, F), the same as the bf16
+    kernel's, and within the card's shared memory."""
+    with open(CU) as f:
+        src = f.read()
+    assert "static constexpr int LD = C + 4;" in src
+    shapes = re.findall(r"C == (\d+) && F == (\d+)\) return launch_f32_epi",
+                        src)
+    assert sorted((int(c), int(f)) for c, f in shapes) == sorted(
+        K1.EPI_SHAPES)
+    for C, F in K1.EPI_SHAPES:
+        smem = K1.epilogue_f32_smem(C, F)
+        assert smem == 64 * 8 * 8 + 2 * 64 * (C + 4) * 4 + C * C * 4
+        assert smem <= K1.SMEM_LIMIT
+    assert K1.epilogue_f32_smem(80, 160) == 72704
 
 
 # ---------------------------------------------------------- emulation
