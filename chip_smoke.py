@@ -57,6 +57,15 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
     tiny config on the card and on the CPU, with K1's f32 kernel held
     against its plain version; and both benchmark tools' JSON lines
     (``fbbev_tpu_torch/tools``), each with exact launch counts.
+11. The training and evaluation loop (``run_loop``): the flagship smoke
+    config (``fbocc-r50_synthetic_smoke.py``) trained through
+    ``train.loop.train`` with K7 for 6 iterations, resumed from its
+    checkpoint to 12 (the restored checkpoint equal bit for bit to the
+    state saved), evaluated from the latest checkpoint on 4 samples,
+    then ``tools.train`` and ``tools.test``, each with exact launch
+    counts; prints ms per iteration, peak memory, checkpoint bytes and
+    save / restore seconds, eval seconds per sample.  Its work dir is a
+    temporary directory, deleted at the end.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -69,7 +78,8 @@ the default configuration alone; ``--profile-occ`` the routed and blend
 streams, those that take K8 and K9 (copied beside an older tree's
 package, it profiles that package).  ``--k6-plans`` and ``--k7-plans`` time
 every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
-``--config`` runs the config phase (10.) alone.
+``--config`` runs the config phase (10.) alone, ``--loop`` the loop
+phase (11.).
 ``--k1`` builds the kernels, prints the ``-Xptxas -v`` lines of
 ``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
 plain versions at the flagship (K5 also bit for bit against K1's one-slot
@@ -1621,6 +1631,239 @@ def run_config(dev):
     return k1_t1, k1_f32
 
 
+SMOKE = "fbocc-r50_synthetic_smoke.py"
+LOOP_ITERS = (6, 12)  # the first train run, then resumed to
+EVAL_SAMPLES = 4
+
+
+def _states_equal(a, b):
+    """Two TrainStates bit for bit: every tensor, the step and counts."""
+    import torch
+    from fbbev_tpu_torch.train.checkpoints import state_to_dict
+    da, db = state_to_dict(a), state_to_dict(b)
+    flat = []
+    for d in (da, db):
+        opt = d.pop("opt_state")
+        d.update({f"opt_state.{k}": v for k, v in opt.items()})
+        flat.append(d)
+    da, db = flat
+    if set(da) != set(db):
+        return False
+    return all(torch.equal(da[k], db[k]) if isinstance(da[k], torch.Tensor)
+               else da[k] == db[k] for k in da)
+
+
+def run_loop(dev):
+    """The training and evaluation loop (``train.loop``) and its tools on
+    the flagship: ``fbocc-r50_synthetic_smoke.py`` -- 6 cameras at
+    256x704, a 100x100x8 BEV of 80 channels with 16 history frames,
+    200x200x16 x 19 classes, batch 1, bf16, ResNet stages checkpointed --
+    with K7 (``pallas3x3=True``), its work dir in a temporary directory
+    deleted at the end, pass or fail.
+
+    1. ``train(max_iters=6)`` (the curriculum flips at 3), then
+       ``train(max_iters=12, resume=True)``: finite losses, the step at
+       12, the step-6 checkpoint restored equal bit for bit to the first
+       run's final state, every step exactly K7_STEP launches of K7
+       (forward, dgrad) and none of the others.
+    2. ``evaluate(max_samples=4)`` from the latest checkpoint on the EMA
+       weights: n_samples 4, a finite mIoU, exactly K1 4, K3 4 + 4
+       (cross- and self-attention), K2 0 and none of the others.
+    3. ``tools.train --max-iters 2`` and ``tools.test --max-samples 1``
+       through their ``main(argv)``, each with its exact launch counts.
+    4. Prints the loop's ms per iteration, peak device memory, each
+       checkpoint's bytes and save / restore seconds and the eval seconds
+       per sample, beside the card's name and power limit.
+
+    Returns the launch counts of the train runs and of the evaluation."""
+    import tempfile
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.data import collate
+    from fbbev_tpu_torch.ops import pallas_conv as K7
+    from fbbev_tpu_torch.tools import test as test_tool
+    from fbbev_tpu_torch.tools import train as train_tool
+    from fbbev_tpu_torch.train import checkpoints as CK
+    from fbbev_tpu_torch.train import loop
+    from fbbev_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    smoke = os.path.join(CONFIGS, SMOKE)
+    cfg = Config.fromfile(smoke)
+    card = nvidia_smi_line()
+    per_pass = sum(c for _, c in K7_SHAPES)
+    k7_step = dict(conv3x3=per_pass + K7_RESNET_LAUNCHES,
+                   conv3x3_dgrad=per_pass)
+
+    def counts():
+        return dict(conv3x3=K7.launches, conv3x3_dgrad=K7.dgrad_launches,
+                    **read_counts())
+
+    def reset():
+        reset_counts()
+        K7.launches = K7.dgrad_launches = 0
+
+    def expect(label, got, want):
+        want = {k: want.get(k, 0) for k in got}
+        if got != want:
+            raise AssertionError(f"loop {label}: launches {got}, expected "
+                                 f"{want}")
+
+    steps, spans, saves, restores, passes = [], [], [], [], []
+    real = (Trainer.train_step, loop.save_checkpoint,
+            loop.restore_checkpoint, loop._eval_pass)
+
+    def train_step(self, *a, **k):
+        # launch counts and the step's span on the stream (CUDA events:
+        # no sync, the loop's overlap of host and device is kept)
+        before = counts()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out = real[0](self, *a, **k)
+        e[1].record()
+        spans.append(e)
+        steps.append({n: v - before[n] for n, v in counts().items()})
+        return out
+
+    def save(ckpt_dir, state, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = real[1](ckpt_dir, state, *a, **k)
+        saves.append((int(state.step), os.path.getsize(path),
+                      time.perf_counter() - t))
+        return path
+
+    def restore(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real[2](*a, **k)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t)
+        return out
+
+    def eval_pass(*a):
+        t = time.perf_counter()
+        n = real[3](*a)  # ends with the last logits on the host
+        passes.append((n, time.perf_counter() - t))
+        return n
+
+    Trainer.train_step = train_step
+    loop.save_checkpoint, loop.restore_checkpoint = save, restore
+    loop._eval_pass = eval_pass
+    try:
+        with tempfile.TemporaryDirectory(prefix="fbbev_loop_") as work:
+            ckpts = os.path.join(work, "ckpts")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            t0 = time.perf_counter()
+            first = loop.train(cfg, max_iters=LOOP_ITERS[0], work_dir=work,
+                               device=dev, pallas3x3=True)
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            if not _states_equal(CK.restore_checkpoint(
+                    ckpts, first["state"], step=LOOP_ITERS[0]),
+                    first["state"]):
+                raise AssertionError("the restored step-6 checkpoint "
+                                     "differs from the run's final state")
+            step6 = int(first["state"].step)
+            hist = first["history"]
+            del first
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            second = loop.train(cfg, max_iters=LOOP_ITERS[1], work_dir=work,
+                                device=dev, resume=True, pallas3x3=True)
+            torch.cuda.synchronize()
+            t_second = time.perf_counter() - t0
+            train_counts = counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            hist += second["history"]
+            if int(second["state"].step) != LOOP_ITERS[1]:
+                raise AssertionError(f"resumed to step "
+                                     f"{second['state'].step}")
+            del second
+            torch.cuda.empty_cache()
+            log(f"loop: train to {LOOP_ITERS[0]} in {t_first:.1f} s, resumed "
+                f"to {LOOP_ITERS[1]} in {t_second:.1f} s (model builds "
+                f"included); launches {train_counts}")
+            if len(steps) != LOOP_ITERS[1]:
+                raise AssertionError(f"{len(steps)} train steps ran")
+            for i, c in enumerate(steps):
+                expect(f"train step {i + 1}", c, k7_step)
+            for h in hist:
+                bad = {k: v for k, v in h.items() if not np.isfinite(v)}
+                if bad:
+                    raise AssertionError(f"non-finite loop metrics {bad}")
+            span = [a.elapsed_time(b) for a, b in spans]
+            t0 = time.perf_counter()
+            sample = collate([loop.build_dataset(cfg)[0]])
+            t_make = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loop._put_batch(sample, dev)
+            torch.cuda.synchronize()
+            t_copy = time.perf_counter() - t0
+            log(f"loop: time_per_iter (the loop's: mean from its run's "
+                f"start, at each log) "
+                f"{[(h['iter'], round(h['time_per_iter'] * 1e3, 1)) for h in hist]}"
+                f" ms; train_step span on the stream (CUDA events) median "
+                f"{np.median(span[LOOP_ITERS[0] + 1:]):.1f} ms over steps "
+                f"{LOOP_ITERS[0] + 2}..{LOOP_ITERS[1]}, first of each run "
+                f"{span[0]:.1f} / {span[LOOP_ITERS[0]]:.1f} ms; a batch "
+                f"made and collated {t_make * 1e3:.1f} ms, copied to the "
+                f"card {t_copy * 1e3:.1f} ms (host clock); peak device "
+                f"memory {peak:.2f} GiB ({card})")
+            log(f"loop: checkpoints (step, bytes, save s): "
+                f"{[(st, b, round(t, 3)) for st, b, t in saves]}; restores "
+                f"{[round(t, 3) for t in restores]} s ({card})")
+            if step6 != LOOP_ITERS[0]:
+                raise AssertionError(f"the first run ended at step {step6}")
+
+            reset()
+            t0 = time.perf_counter()
+            res = loop.evaluate(cfg, work_dir=work, max_samples=EVAL_SAMPLES,
+                                device=dev)
+            torch.cuda.synchronize()
+            eval_counts = counts()
+            n, secs = passes[-1]
+            log(f"loop: evaluate {json.dumps(res)} in "
+                f"{time.perf_counter() - t0:.1f} s (model build and restore "
+                f"included); launches {eval_counts}")
+            log(f"loop: eval {secs / n * 1e3:.1f} ms a sample (host clock, "
+                f"the pass over {n} samples: data, eval_step, logits to the "
+                f"host, format and metric) ({card})")
+            if res["n_samples"] != EVAL_SAMPLES or not np.isfinite(
+                    res["Overall"]):
+                raise AssertionError(f"evaluate returned {res}")
+            expect("evaluate", eval_counts,
+                   {k: EVAL_SAMPLES * v
+                    for k, v in PER_FRAME["forward"].items()})
+
+            tools = os.path.join(work, "tools")
+            for tool, argv, want in (
+                    (train_tool, ["--max-iters", "2"], {}),
+                    (test_tool, ["--max-samples", "1"],
+                     PER_FRAME["forward"])):
+                reset()
+                t0 = time.perf_counter()
+                out = tool.main([smoke, "--work-dir", tools] + argv)
+                torch.cuda.synchronize()
+                c = counts()
+                log(f"loop: {tool.__name__} {' '.join(argv)} in "
+                    f"{time.perf_counter() - t0:.1f} s; launches {c}")
+                expect(tool.__name__, c, want)
+                if tool is train_tool and int(out["state"].step) != 2:
+                    raise AssertionError("tools.train did not take 2 steps")
+                if tool is test_tool and out["n_samples"] != 1:
+                    raise AssertionError(f"tools.test returned {out}")
+                del out
+                torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step = real[0]
+        loop.save_checkpoint, loop.restore_checkpoint = real[1], real[2]
+        loop._eval_pass = real[3]
+    log(f"loop phase: {time.perf_counter() - t_phase:.1f} s")
+    return train_counts, eval_counts
+
+
 def k1_captured(run):
     """``run()`` with K1's wrapper recording its inputs: (run's result,
     (args, kwargs) of K1's last call)."""
@@ -1995,6 +2238,11 @@ def main():
         check_k8(dev)
         log(f"chip_smoke --occ: {time.perf_counter() - T0:.1f} s")
         return 0
+    if "--loop" in sys.argv[1:]:
+        # the training and evaluation loop alone (run_loop)
+        run_loop(dev)
+        log(f"chip_smoke --loop: {time.perf_counter() - T0:.1f} s")
+        return 0
     if "--config" in sys.argv[1:]:
         # the config-built entry alone (run_config)
         run_config(dev)
@@ -2039,6 +2287,11 @@ def main():
     for k in k7:
         k["launches"] = train_counts[k["name"]]
     k1_t1, k1_f32 = run_config(dev)
+    loop_train, loop_eval = run_loop(dev)
+    for k in kernels:
+        k["loop_launches"] = loop_eval[k["name"]]
+    for k in k7:
+        k["loop_launches"] = loop_train[k["name"]]
     kernels[3].update(t1_ms=k1_t1["ms"], t1_graph_ms=k1_t1["graph_ms"],
                       t1_plain_ms=k1_t1["plain_ms"],
                       t1_bound_ms=k1_t1["bound_ms"],

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from fbbev_tpu_torch.data.transforms import occupancy_from_bevdet_axes
 from fbbev_tpu_torch.geometry import rot_z
 
 
@@ -121,11 +122,3 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         keys &= set(s)
     return {k: np.stack([s[k] for s in samples]) for k in keys}
 
-
-def occupancy_from_bevdet_axes(occ: np.ndarray) -> np.ndarray:
-    """A label volume from the BEVDet axes to the CVPR / Occ3D ones, the
-    copy of ``fbbev_tpu/data/transforms.py::occupancy_from_bevdet_axes``."""
-    occ = np.transpose(occ, (2, 0, 1))
-    occ = np.flip(occ, 1)
-    occ = np.rot90(occ, -1, (1, 2))
-    return np.transpose(occ, (1, 2, 0)).copy()

@@ -39,6 +39,20 @@ def rot_z(angle_rad: float) -> np.ndarray:
     return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
 
 
+def quat_to_rot(q: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) quaternion -> 3x3 rotation (pyquaternion convention),
+    float64, the copy of the JAX package's."""
+    q = np.asarray(q, np.float64)
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+
+
 def gen_dx_bx(xb: Sequence[float], yb: Sequence[float],
               zb: Sequence[float]):
     """Grid cell size ``dx``, first-cell centre ``bx``, cell counts ``nx``."""

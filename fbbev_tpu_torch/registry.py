@@ -1,7 +1,8 @@
 """String-keyed component registry, the port's own copy of
 ``fbbev_tpu/registry.py``: a config's ``dict(type='FBOCC', ...)`` names a
 registered constructor, the other keys are its arguments.  The port's
-``FBOCC`` is registered in :data:`DETECTORS`.
+``FBOCC`` is registered in :data:`DETECTORS`, its datasets and dataset
+wrappers in :data:`DATASETS`.
 """
 
 from __future__ import annotations
@@ -68,3 +69,4 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry, **extra_kwargs):
 # The registries a port module registers in (the JAX package has the
 # reference mmdet3d's ten; the others come with the modules that use them).
 DETECTORS = Registry("detectors")
+DATASETS = Registry("datasets")

@@ -87,8 +87,11 @@ class Optimizer:
         # torch.linalg.vector_norm accumulates a long float32 vector in
         # order on the CPU and comes out 0.3% low at 30M elements
         g_norm = torch.sqrt(torch.sum(g * g))
-        if g_norm >= self.max_grad_norm:
-            g.div_(g_norm).mul_(self.max_grad_norm)
+        # g / g_norm * max_norm where clipped, else g / 1 * 1 (exact):
+        # no branch on a device value, so the step does not wait for it
+        clip = g_norm >= self.max_grad_norm
+        g.div_(torch.where(clip, g_norm, 1.0)).mul_(
+            torch.where(clip, self.max_grad_norm, 1.0))
         count = state.count + 1
         mu = torch.mul(g, 1.0 - B1).add_(state.mu, alpha=B1)
         nu = g.mul_(g).mul_(1.0 - B2).add_(state.nu, alpha=B2)

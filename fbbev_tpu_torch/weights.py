@@ -45,38 +45,42 @@ class _Exporter:
             d = d[k]
         return True
 
+    def _put(self, name: str, tree: str, path: Tuple[str, ...],
+             relayout=None) -> None:
+        """``sd[name]`` = the leaf at ``path`` of ``tree``, relaid out."""
+        v = self._get(tree, path)
+        self.sd[name] = v if relayout is None else relayout(v)
+
     def conv(self, src, dst, ndim=2):
         perm = (3, 2, 0, 1) if ndim == 2 else (4, 3, 0, 1, 2)
-        self.sd[src + ".weight"] = np.transpose(
-            self._get("params", dst + ("kernel",)), perm)
+        self._put(src + ".weight", "params", dst + ("kernel",),
+                  lambda k: np.transpose(k, perm))
         if self._has(dst + ("bias",)):
-            self.sd[src + ".bias"] = self._get("params", dst + ("bias",))
+            self._put(src + ".bias", "params", dst + ("bias",))
 
     def deconv3d(self, src, dst):
-        k = self._get("params", dst + ("kernel",))
-        self.sd[src + ".weight"] = np.ascontiguousarray(np.transpose(
-            np.flip(k, (0, 1, 2)), (3, 4, 0, 1, 2)))
+        self._put(src + ".weight", "params", dst + ("kernel",),
+                  lambda k: np.ascontiguousarray(np.transpose(
+                      np.flip(k, (0, 1, 2)), (3, 4, 0, 1, 2))))
 
     def bn(self, src, dst):
-        self.sd[src + ".weight"] = self._get("params", dst + ("scale",))
-        self.sd[src + ".bias"] = self._get("params", dst + ("bias",))
-        self.sd[src + ".running_mean"] = self._get("batch_stats",
-                                                   dst + ("mean",))
-        self.sd[src + ".running_var"] = self._get("batch_stats",
-                                                  dst + ("var",))
+        self._put(src + ".weight", "params", dst + ("scale",))
+        self._put(src + ".bias", "params", dst + ("bias",))
+        self._put(src + ".running_mean", "batch_stats", dst + ("mean",))
+        self._put(src + ".running_var", "batch_stats", dst + ("var",))
 
     def linear(self, src, dst, conv1x1=False):
-        w = self._get("params", dst + ("kernel",)).T
-        self.sd[src + ".weight"] = w[:, :, None, None] if conv1x1 else w
+        self._put(src + ".weight", "params", dst + ("kernel",),
+                  lambda k: k.T[:, :, None, None] if conv1x1 else k.T)
         if self._has(dst + ("bias",)):
-            self.sd[src + ".bias"] = self._get("params", dst + ("bias",))
+            self._put(src + ".bias", "params", dst + ("bias",))
 
     def layernorm(self, src, dst):
-        self.sd[src + ".weight"] = self._get("params", dst + ("scale",))
-        self.sd[src + ".bias"] = self._get("params", dst + ("bias",))
+        self._put(src + ".weight", "params", dst + ("scale",))
+        self._put(src + ".bias", "params", dst + ("bias",))
 
     def raw(self, src, dst):
-        self.sd[src] = self._get("params", dst)
+        self._put(src, "params", dst)
 
     def convbn(self, src_conv, src_bn, dst, ndim=2):
         self.conv(src_conv, dst + ("conv",), ndim)
@@ -240,6 +244,32 @@ def to_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
     if left:
         raise KeyError(f"JAX leaves without a rule: {left[:5]}")
     return b.sd
+
+
+class _PartialExporter(_Exporter):
+    """The rules over a tree that may lack some leaves (a partial warm
+    start): a leaf that is absent converts to nothing."""
+
+    def _put(self, name, tree, path, relayout=None):
+        d = self.trees[tree]
+        for k in path:
+            if not isinstance(d, dict) or k not in d:
+                return
+            d = d[k]
+        super()._put(name, tree, path, relayout)
+
+
+def partial_state_dict(variables: Dict[str, Any], model: torch.nn.Module
+                       ) -> Tuple[Dict[str, np.ndarray], int]:
+    """JAX ``{'params', 'batch_stats'}`` that may hold only part of
+    ``model``'s leaves -> (the port's state dict of the leaves it holds,
+    the number of its leaves no rule of ``model``'s structure reads)."""
+    b = _PartialExporter(variables.get("params", {}),
+                         variables.get("batch_stats", {}))
+    _rules(b, _model_spec(model))
+    unused = sum(1 for t in ("params", "batch_stats")
+                 for q in _leaves(b.trees[t]) if (t,) + q not in b.used)
+    return b.sd, unused
 
 
 def load_jax_variables(model: torch.nn.Module,

@@ -692,3 +692,76 @@ def test_small_train_steps_on_card(dev):
     assert K7.launches > f0 and K7.dgrad_launches > d0
     assert [m.launches for m in (K1, K2, K3)] + [
         K3.selfattn_launches] == before
+
+
+def test_loop_train_resume_evaluate_on_card(dev):
+    """``train.loop`` on the card: the tiny config (float32, cut to a
+    ResNet-10, batch 1) with K7 for 3 iterations (the curriculum flips at
+    2), resumed from its checkpoint to 4, then evaluated from the latest
+    checkpoint on 3 samples.  Finite losses; every train step the same
+    K7 launches (forward and dgrad, > 0) and none of the serving
+    kernels; the restored state equal to the saved one; the evaluation
+    K1 (its f32 kernel) once and K3 twice (cross- and self-attention) a
+    sample, K2 and K7 never.  Its checkpoints live in a temporary
+    directory."""
+    import os
+    import tempfile
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.train import checkpoints as CK
+    from fbbev_tpu_torch.train import loop
+    cfg = Config.fromfile(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "fbbev_tpu_torch", "configs", "fbocc-r50-tiny_synthetic.py"))
+    cfg.merge_from_options({
+        "model.backbone_depth": "10", "model.depth_mid_channels": "64",
+        "model.img_feat_channels": "64", "data.batch_size": "1",
+        "log_interval": "1", "checkpoint_interval": "100",
+        "temporal_start_iter": "2"})
+    serving = (K1, K2, K3, K5, K6, K8, K9, K10)
+
+    def count():
+        return ([K7.launches, K7.dgrad_launches]
+                + [m.launches for m in serving]
+                + [K1.f32_launches, K3.selfattn_launches])
+
+    per_step = []
+    real = loop.Trainer.train_step
+
+    def step(self, *a, **k):
+        before = count()
+        out = real(self, *a, **k)
+        per_step.append([x - y for x, y in zip(count(), before)])
+        return out
+
+    loop.Trainer.train_step = step
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            first = loop.train(cfg, max_iters=3, work_dir=d, device=dev,
+                               pallas3x3=True)
+            ckpts = os.path.join(d, "ckpts")
+            restored = CK.restore_checkpoint(ckpts, first["state"])
+            for k in ("params", "batch_stats", "ema_params",
+                      "ema_batch_stats"):
+                assert torch.equal(getattr(restored, k),
+                                   getattr(first["state"], k)), k
+            second = loop.train(cfg, max_iters=4, work_dir=d, device=dev,
+                                resume=True, pallas3x3=True)
+            assert int(second["state"].step) == 4
+            for h in first["history"] + second["history"]:
+                assert all(np.isfinite(v) for v in h.values()), h
+            assert len(per_step) == 4
+            assert per_step[0][0] > 0 and per_step[0][1] > 0
+            assert all(c == per_step[0][:2] + [0] * (len(c) - 2)
+                       for c in per_step), per_step
+            before = count()
+            res = loop.evaluate(cfg, work_dir=d, max_samples=3, device=dev)
+            torch.cuda.synchronize()
+            delta = dict(zip(
+                ["k7", "k7_dgrad", "k1", "k2", "k3", "k5", "k6", "k8", "k9",
+                 "k10", "k1_f32", "k4"],
+                [x - y for x, y in zip(count(), before)]))
+    finally:
+        loop.Trainer.train_step = real
+    assert res["n_samples"] == 3 and np.isfinite(res["Overall"])
+    assert delta == dict(k7=0, k7_dgrad=0, k1=0, k2=0, k3=3, k5=0, k6=0,
+                         k8=0, k9=0, k10=0, k1_f32=3, k4=3), delta
