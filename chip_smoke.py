@@ -67,19 +67,33 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
     save / restore seconds, eval seconds per sample.  Its work dir is a
     temporary directory, deleted at the end.
 
+12. The FB-BEV detection path (``run_det``): ``fbbev-r50-det_16f.py``
+    built through ``train.loop.build_model``, 5 frames of its eval
+    forward (exact K1, K3, K4 launches; six task dicts, no occupancy) and
+    the decode on the card against the CPU's of the same head outputs;
+    the tiny config with the detection head in float32 on the card and
+    on the CPU; 3 + 3 train steps with K7 (the 12 detection losses, a
+    gradient in every branch, K7's launches as the model's convs
+    predict); ``train.loop.evaluate`` and ``tools.test`` on synthetic
+    clips with box GT; K7 against its plain version at the head's two
+    shapes.  Adds ``det_launches`` (and K7's ``det_head_*`` times) to
+    the kernels' entries.
+
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and prints
 the flagship frame time and its per-stage and per-kernel device times, for
 the kernel-routed configuration and the default one, then the flagship
-train step's time and its device time by kernel; ``--profile-default``
+train step's time and its device time by kernel; ``--profile-det`` the
+detection config's eval forward, decode and train step with K7;
+``--profile-default``
 the default configuration alone; ``--profile-occ`` the routed and blend
 streams, those that take K8 and K9 (copied beside an older tree's
 package, it profiles that package).  ``--k6-plans`` and ``--k7-plans`` time
 every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
 ``--config`` runs the config phase (10.) alone, ``--loop`` the loop
-phase (11.).
+phase (11.), ``--det`` the detection phase (12.).
 ``--k1`` builds the kernels, prints the ``-Xptxas -v`` lines of
 ``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
 plain versions at the flagship (K5 also bit for bit against K1's one-slot
@@ -127,6 +141,16 @@ K7_SHAPES = [((6, 64, 176, 64, 64), 3), ((6, 32, 88, 128, 128), 3),
              ((4, 50, 50, 256, 256), 3), ((8, 100, 100, 256, 128), 3),
              ((4, 50, 50, 256, 128), 3), ((2, 25, 25, 256, 128), 3)]
 K7_RESNET_LAUNCHES = 13  # recomputed in the backward of checkpointed stages
+# of them, the occ head's three 3x3x3 convs' z-slabs (the detection config
+# has no occ head)
+K7_OCC_HEAD_SHAPES = K7_SHAPES[-3:]
+# K7's launches in one forward pass of the FB-BEV detection head
+# (``fbbev-r50-det_16f.py`` with pallas3x3, B=1): the shared conv on the
+# Z-folded BEV (8 x 256 channels) and the 36 branch convs
+K7_HEAD_SHAPES = [((1, 100, 100, 2048, 64), 1), ((1, 100, 100, 64, 64), 36)]
+# and the z-slabs of FPN3D's level 1 and 2 output convs, which a model
+# without the occ head does not run (only the finest level is read)
+K7_DET_UNREAD_SHAPES = [((4, 50, 50, 256, 256), 3), ((2, 25, 25, 256, 256), 3)]
 
 
 def log(*a):
@@ -927,8 +951,9 @@ def wgrad_nine(x, g):
     return torch.stack(taps).reshape(3, 3, Cin, -1).permute(3, 2, 0, 1)
 
 
-def check_k7(dev):
-    """K7 forward and input gradient at every shape of ``K7_SHAPES``, bf16
+def check_k7(dev, shapes=K7_SHAPES):
+    """K7 forward and input gradient at every shape of ``shapes`` (by
+    default ``K7_SHAPES``; ``K7_HEAD_SHAPES`` for the detection head), bf16
     (and f32 at three shapes), against the plain version; times of
     kernel, plain version and cuDNN (``F.conv2d`` / ``conv2d_input``), per
     call (CUDA events around back-to-back calls, the host's launch cost
@@ -960,7 +985,7 @@ def check_k7(dev):
     err = {k: {"abs": 0.0, "tol": 0.0, "rel": 0.0}
            for k in ("fwd", "dgrad")}
     sms = K7._sms(dev)
-    for (N, H, W, ci, co), count in K7_SHAPES:
+    for (N, H, W, ci, co), count in shapes:
         for dt in ((torch.bfloat16, torch.float32)
                    if (H, ci) in ((64, 64), (16, 512), (25, 256)) else
                    (torch.bfloat16,)):
@@ -1058,7 +1083,7 @@ def check_k7(dev):
                     f"maps, conv, split-K sum) {hus[3]:.1f} us, one "
                     f"torch.empty {hus[4]:.1f} us")
     b = bound(tot["bytes"], tc_flops=tot["flops"])
-    n = sum(c for _, c in K7_SHAPES)
+    n = sum(c for _, c in shapes)
     log(f"K7 over the {n} launches of one pass: fwd {tot['ms']:.4f} ms per "
         f"call, {tot['gms']:.4f} ms from a graph (cuDNN {tot['lib']:.4f} / "
         f"{tot['glib']:.4f}); dgrad {tot['dms']:.4f} / {tot['dgms']:.4f} ms "
@@ -1864,6 +1889,441 @@ def run_loop(dev):
     return train_counts, eval_counts
 
 
+DET = "fbbev-r50-det_16f.py"
+DET_FRAMES = 5
+DET_EVAL_SAMPLES = 2
+
+
+def det_gt(seed, M=48):
+    """Padded box GT of one sample, numpy: 40 boxes of all 10 classes in
+    turn (4 of them off the 100x100 grid) and 8 padding rows (label -1)."""
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((M, 9), np.float32)
+    labels = np.full((M,), -1, np.int64)
+    n = M - 8
+    boxes[:n, 0:2] = rng.uniform(-38, 38, (n, 2))
+    boxes[:n, 2] = rng.uniform(-1, 2, n)
+    boxes[:n, 3:6] = rng.uniform(0.5, 5, (n, 3))
+    boxes[:n, 6] = rng.uniform(-np.pi, np.pi, n)
+    boxes[:n, 7:9] = rng.randn(n, 2)
+    labels[:n] = np.arange(n) % 10
+    boxes[:4, 0] = [45.0, -52.0, 60.0, -41.0]   # off the grid in x
+    return boxes, labels
+
+
+class WithBoxes:
+    """A dataset with :func:`det_gt` box GT added to each sample (the
+    synthetic clips carry none)."""
+
+    def __init__(self, ds):
+        self.ds, self.flag = ds, ds.flag
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        s = self.ds[i]
+        s["gt_boxes"], s["gt_labels"] = det_gt(1000 + i)
+        return s
+
+
+def det_frame(dev, g, cam, model, start, step):
+    """One synthetic eval frame of the flagship rig on ``dev``."""
+    import torch
+    N = cam.trans.shape[1]
+    H, W = model.input_size
+    b = dict(imgs=torch.randn(1, N, H, W, 3, generator=g), **cam._asdict(),
+             start_of_sequence=torch.tensor([start]),
+             sequence_group_idx=torch.zeros(1, dtype=torch.int32),
+             curr_to_prev_ego_rt=torch.from_numpy(flow(0 if start else step)))
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def check_det_preds(preds, grid):
+    """The six task dicts of one frame: their maps' shapes (1, Y, X, ch),
+    float32, finite."""
+    from fbbev_tpu_torch.models.centerpoint_head import (NUSCENES_TASKS,
+                                                         REG_HEADS)
+    import torch
+    if len(preds) != len(NUSCENES_TASKS):
+        raise AssertionError(f"{len(preds)} task dicts")
+    for t, (p, classes) in enumerate(zip(preds, NUSCENES_TASKS)):
+        for name, ch in REG_HEADS + (("heatmap", len(classes)),):
+            v = p[name]
+            if tuple(v.shape) != (1,) + grid + (ch,) or \
+                    v.dtype != torch.float32:
+                raise AssertionError(f"task{t} {name}: {tuple(v.shape)} "
+                                     f"{v.dtype}")
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"task{t} {name}: non-finite")
+
+
+def decode_agreement(a, b):
+    """Two decodes (boxes, scores, labels) on the CPU: (keep equal, labels
+    equal, rows agreeing in both, max box error relative to max(1,
+    |value|) on rows both keep, max score error, scores bit for bit
+    equal)."""
+    import torch
+    keep_a, keep_b = a[1] >= 0, b[1] >= 0
+    same = (keep_a == keep_b) & (a[2] == b[2])
+    both = keep_a & keep_b & (a[2] == b[2])
+    box_err = float(((a[0] - b[0]).abs() / b[0].abs().clamp(min=1.0))[
+        both].max()) if both.any() else 0.0
+    return (bool(torch.equal(keep_a, keep_b)), bool(torch.equal(a[2], b[2])),
+            float(same.float().mean()), box_err,
+            float((a[1] - b[1]).abs().max()), bool(torch.equal(a[1], b[1])))
+
+
+def run_det(dev):
+    """The FB-BEV detection path (``fbbev-r50-det_16f.py``: the flagship
+    with the CenterPoint head on the Z-folded BEV, no occupancy head) on
+    the card, through the entry points a user calls.
+
+    1. Eval stream: the config through ``train.loop.build_model`` (bf16,
+       random weights from ``torch.Generator().manual_seed(0)``), 5 frames
+       of the flagship rig through ``FBOCC.forward`` (eval, history
+       carried), then ``centerpoint_decode``: six task dicts of (1, 100,
+       100, ch) float32 maps, finite, no ``occ_logits``, boxes (1, 600,
+       9); exactly K1, K3 and K4 once a frame, K2 never.  The last
+       frame's decode on the card against the decode of the same head
+       outputs on the CPU: keep masks and labels equal, scores within
+       1e-6, boxes within 1e-5 of max(1, |value|) (the sigmoid's, exp's
+       and atan2's roundings may differ by an ulp between the two).
+    2. Card against CPU: the tiny config (``fbocc-r50-tiny_synthetic.py``
+       with the detection head) in float32, TF32 off, the same weights on
+       both, 3 frames: ``det_preds`` within 1e-3 of max(1, |value|) (f32
+       sums in other orders through a random-weight network), the decodes
+       agreeing on >= 98% of rows (keep and label; near-ties of two
+       scores may swap within the outputs' tolerance).
+    3. Train steps: the config with K7 (``pallas3x3=True``; its
+       ``remat=True``), B=1, 3 fresh-stream then 3 history steps of
+       ``Trainer.train_step`` on a synthetic batch with padded box GT (all
+       10 classes, boxes off the grid, padding rows): the 12 detection
+       losses and the depth loss finite, a non-zero gradient in the
+       shared conv and in every branch of every task, and K7's forward
+       and dgrad launches exactly what the model's K7 convs predict
+       (worked out before the run from the modules, and from the shapes
+       tables); none of the serving kernels.  ms per step and peak
+       memory.
+    4. The loop: ``train.loop.evaluate`` of 2 samples of the config on
+       ``SyntheticClipDataset`` with box GT (on the train phase's state,
+       with its K7 model): finite mAP and NDS, exact launches; then the
+       state saved as a checkpoint and ``tools.test --max-samples 1``
+       from it.  Every file in a temporary directory.
+    5. K7 against its plain version at the head's two shapes
+       (``check_k7(dev, K7_HEAD_SHAPES)``), forward and dgrad.
+
+    Returns (eval stream counts, train counts, K7's head-shape entries)."""
+    import tempfile
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.models.centerpoint_head import (
+        BRANCHES, NUSCENES_TASKS, centerpoint_decode)
+    from fbbev_tpu_torch.models.fbocc import init_temporal_state
+    from fbbev_tpu_torch.models.layers import Conv3dZSlabK7, Conv3x3K7
+    from fbbev_tpu_torch.ops import pallas_conv as K7
+    from fbbev_tpu_torch.tools import test as test_tool
+    from fbbev_tpu_torch.train import checkpoints as CK
+    from fbbev_tpu_torch.train import loop
+    from fbbev_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    det = os.path.join(CONFIGS, DET)
+    cfg = Config.fromfile(det)
+    bf16 = torch.bfloat16
+
+    def counts():
+        return dict(conv3x3=K7.launches, conv3x3_dgrad=K7.dgrad_launches,
+                    **read_counts())
+
+    def reset():
+        reset_counts()
+        K7.launches = K7.dgrad_launches = 0
+
+    def expect(label, got, want):
+        want = {k: want.get(k, 0) for k in got}
+        if got != want:
+            raise AssertionError(f"det {label}: launches {got}, expected "
+                                 f"{want}")
+
+    # 1. the eval stream
+    t0 = time.perf_counter()
+    model = loop.build_model(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    if model.dtype != bf16 or model.occupancy_head is not None or \
+            model.pts_bbox_head is None:
+        raise AssertionError("the detection config built another model")
+    fp = model.forward_projection
+    grid = (int(fp.nx[1]), int(fp.nx[0]))
+    cam = flagship_rig()
+    g = torch.Generator().manual_seed(1)
+    frames = [det_frame(dev, g, cam, model, i == 0, i)
+              for i in range(DET_FRAMES)]
+    tstate = init_temporal_state(1, fp.grid_size, model.history_cat_num,
+                                 model.single_bev_num_channels,
+                                 dtype=model.dtype, device=dev)
+    log(f"det: {DET} built ({sum(p.numel() for p in model.parameters())} "
+        f"parameters) and {DET_FRAMES} frames made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    times = []
+    reset()
+    with torch.no_grad():
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, tstate = model(f, tstate, train=False)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if "occ_logits" in out:
+                raise AssertionError("the detection model made occ_logits")
+            check_det_preds(out["det_preds"], grid)
+    stream_counts = counts()
+    log(f"det: eval forward ms per frame {[round(x, 2) for x in times]}, "
+        f"median {np.median(times[1:]):.2f} ms (frames 2..{DET_FRAMES}, "
+        f"host clock, {card}); launches {stream_counts}")
+    expect("eval stream", stream_counts,
+           {k: DET_FRAMES * v for k, v in PER_FRAME["forward"].items()})
+    preds = out["det_preds"]
+    args = (NUSCENES_TASKS, model.pc_range, (float(fp.dx[0]),
+                                             float(fp.dx[1])))
+    on_card = centerpoint_decode(preds, *args)
+    if tuple(on_card[0].shape) != (1, 600, 9):
+        raise AssertionError(f"decoded boxes {tuple(on_card[0].shape)}")
+    on_cpu = centerpoint_decode([{k: v.cpu() for k, v in p.items()}
+                                 for p in preds], *args)
+    keep_eq, lab_eq, _, box_err, score_err, bits = decode_agreement(
+        [a.cpu() for a in on_card], on_cpu)
+    n_kept = int((on_cpu[1] >= 0).sum())
+    hm_ties = sum(int(p["heatmap"].numel() - p["heatmap"].unique().numel())
+                  for p in preds)
+    ms_dec = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        centerpoint_decode(preds, *args)
+        torch.cuda.synchronize()
+        ms_dec.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        centerpoint_decode(preds, *args)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0) / 10
+    torch.cuda.synchronize()
+    dec_dev = cuda_time(lambda: centerpoint_decode(preds, *args), iters=10)
+    log(f"det: decode of the last frame, card vs CPU: keep equal {keep_eq}, "
+        f"labels equal {lab_eq}, scores max err {score_err:.3e} (bit for "
+        f"bit {bits}), boxes max rel err {box_err:.3e}; {n_kept} of 600 "
+        f"rows kept; {hm_ties} tied heatmap values; decode "
+        f"{np.median(ms_dec):.3f} ms (median of 10, host clock, synced), "
+        f"{enqueue_ms:.3f} ms to enqueue, {dec_dev:.3f} ms per call back to "
+        f"back (CUDA events) ({card})")
+    if not (keep_eq and lab_eq and score_err <= 1e-6 and box_err <= 1e-5):
+        raise AssertionError("the decode on the card differs from the CPU's")
+    del model, out, preds, frames, tstate
+    torch.cuda.empty_cache()
+
+    # 2. the tiny detection config on the card and on the CPU, float32
+    tiny = Config.fromfile(os.path.join(CONFIGS,
+                                        "fbocc-r50-tiny_synthetic.py"))
+    tiny.merge_from_options({"model.use_occupancy_head": "False",
+                             "model.use_detection_head": "True"})
+    res = {}
+    for d in ("cpu", dev):
+        m = loop.build_model(tiny, device=d,
+                             generator=torch.Generator().manual_seed(5))
+        if m.dtype != torch.float32:
+            raise AssertionError(f"tiny config built in {m.dtype}")
+        tfp = m.forward_projection
+        ts = init_temporal_state(1, tfp.grid_size, m.history_cat_num,
+                                 m.single_bev_num_channels, device=d)
+        g = torch.Generator().manual_seed(6)
+        rig = flagship_rig(N=2, H=64, W=176)
+        res[d] = []
+        with torch.no_grad():
+            for i in range(3):
+                out, ts = m(det_frame(d, g, rig, m, i == 0, i), ts,
+                            train=False)
+                check_det_preds(out["det_preds"],
+                                (int(tfp.nx[1]), int(tfp.nx[0])))
+                dec = centerpoint_decode(
+                    out["det_preds"], NUSCENES_TASKS, m.pc_range,
+                    (float(tfp.dx[0]), float(tfp.dx[1])))
+                res[d].append(([{k: v.cpu() for k, v in p.items()}
+                                for p in out["det_preds"]],
+                               [a.cpu() for a in dec]))
+    pred_err, agree, box_errs = 0.0, 1.0, []
+    for (pc_, dc), (pg, dg) in zip(res["cpu"], res[dev]):
+        for a, b in zip(pg, pc_):
+            for k in b:
+                pred_err = max(pred_err, float((a[k] - b[k]).abs().max())
+                               / max(1.0, float(b[k].abs().max())))
+        _, _, same, box_err, _, _ = decode_agreement(dg, dc)
+        agree, box_errs = min(agree, same), box_errs + [box_err]
+    log(f"det: tiny config (float32) card vs CPU over 3 frames: det_preds "
+        f"max err {pred_err:.3e} of max(1, |value|) (tol 1e-3); decodes "
+        f"agree on {agree:.4f} of rows (keep and label; tol >= 0.98), kept "
+        f"boxes max rel err {max(box_errs):.3e}")
+    if pred_err > 1e-3 or agree < 0.98:
+        raise AssertionError("tiny detection config: card and CPU differ")
+    del res, m
+
+    # 3. train steps with K7
+    t0 = time.perf_counter()
+    model = loop.build_model(cfg, device=dev, pallas3x3=True,
+                             generator=torch.Generator().manual_seed(0))
+    if not model.remat:
+        raise AssertionError("the detection config trains without remat")
+    # K7's launches a step, from the model's modules: each 2D K7 conv
+    # once forward and once in dgrad, each z-slab conv three times each,
+    # the ResNet's again in the recomputation of its checkpointed stages;
+    # FPN3D's coarser output convs do not run (only its finest level is
+    # read)
+    n2d = sum(isinstance(m, Conv3x3K7) for m in model.modules())
+    n3d = sum(type(m) is Conv3dZSlabK7 for m in model.modules()) - sum(
+        type(m) is Conv3dZSlabK7
+        for conv in model.img_bev_encoder_neck.fpn_convs[1:]
+        for m in conv.modules())
+    nrem = sum(isinstance(m, Conv3x3K7)
+               for m in model.img_backbone.modules())
+    n_head = sum(isinstance(m, Conv3x3K7)
+                 for m in model.pts_bbox_head.modules())
+    per_pass = n2d + 3 * n3d
+    by_shapes = (sum(c for _, c in K7_SHAPES + K7_HEAD_SHAPES)
+                 - sum(c for _, c in K7_OCC_HEAD_SHAPES
+                       + K7_DET_UNREAD_SHAPES))
+    if (per_pass, nrem, n_head) != (by_shapes, K7_RESNET_LAUNCHES, 37):
+        raise AssertionError(f"K7 convs {per_pass} / {nrem} / {n_head}, the "
+                             f"shapes tables give {by_shapes} / "
+                             f"{K7_RESNET_LAUNCHES} / 37")
+    steps = sum(TRAIN_STEPS)
+    k7_step = dict(conv3x3=per_pass + nrem, conv3x3_dgrad=per_pass)
+    log(f"det train: K7 per step expected {k7_step} ({n2d} 2D convs, "
+        f"{n_head} of them the head's, {n3d} z-slab convs, {nrem} "
+        f"recomputed)")
+    trainer = Trainer(model)
+    s0 = trainer.init_state()
+    tstate = init_temporal_state(1, fp.grid_size, model.history_cat_num,
+                                 model.single_bev_num_channels,
+                                 dtype=model.dtype, device=dev)
+    g = torch.Generator().manual_seed(9)
+    batches = []
+    for i in range(steps):
+        b = train_batch(dev, g, model, cam, i < TRAIN_STEPS[0], i)
+        del b["gt_occupancy"]
+        boxes, labels = det_gt(i)
+        b.update(gt_boxes=torch.from_numpy(boxes[None]).to(dev),
+                 gt_labels=torch.from_numpy(labels[None]).to(dev))
+        batches.append(b)
+    log(f"det train: model, trainer and {steps} batches built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, ms = s0, []
+    det_keys = {f"task{t}_loss_{k}" for t in range(len(NUSCENES_TASKS))
+                for k in ("heatmap", "bbox")}
+    for i, batch in enumerate(batches):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        state, tstate, met = trainer.train_step(
+            state, tstate, batch, do_history=i >= TRAIN_STEPS[0])
+        e[1].record()
+        torch.cuda.synchronize()
+        ms.append(e[0].elapsed_time(e[1]))
+        met = {k: float(v) for k, v in met.items()}
+        log(f"det train step {i} (do_history={i >= TRAIN_STEPS[0]}): "
+            f"{ms[-1]:.1f} ms " + " ".join(f"{k}={v:.4f}"
+                                           for k, v in met.items()))
+        if not det_keys | {"loss_depth"} <= set(met) or \
+                not all(np.isfinite(v) for v in met.values()):
+            raise AssertionError(f"detection losses: {met}")
+        if met["seq_mismatch"] != 0:
+            raise AssertionError("sequence mismatch in a continuing step")
+        if i == 0:
+            # Adam's first moment is 0.1 * the clipped gradient
+            mu = trainer.unflatten(state.opt_state.mu)
+            parts = ["pts_bbox_head.shared_conv."] + [
+                f"pts_bbox_head.task_heads.{t}.{name}."
+                for t in range(len(NUSCENES_TASKS)) for name in BRANCHES]
+            norms = {p: float(torch.sqrt(sum(
+                (v.float() ** 2).sum() for n, v in mu.items()
+                if n.startswith(p)))) for p in parts}
+            bad = {p: v for p, v in norms.items()
+                   if not (np.isfinite(v) and v > 0)}
+            log(f"  gradient (Adam mu) norm of the shared conv "
+                f"{norms[parts[0]]:.4e}, of the branches "
+                f"{min(list(norms.values())[1:]):.4e} .. "
+                f"{max(list(norms.values())[1:]):.4e}")
+            if bad:
+                raise AssertionError(f"no gradient reaches {bad}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_counts = counts()
+    log(f"det train: launches {train_counts}")
+    expect("train steps", train_counts,
+           {k: steps * v for k, v in k7_step.items()})
+    step_ms = float(np.median(ms[1:]))
+    log(f"det train step: {step_ms:.1f} ms per step (median of steps "
+        f"2..{steps}, CUDA events; first step {ms[0]:.1f} ms), peak "
+        f"device memory {peak:.2f} GiB ({card})")
+    del batches
+    torch.cuda.empty_cache()
+
+    # 4. the loop and tools.test on synthetic clips with box GT
+    real_build = loop.build_dataset
+    loop.build_dataset = lambda c, split="train": WithBoxes(
+        real_build(c, split))
+    try:
+        with tempfile.TemporaryDirectory(prefix="fbbev_det_") as work:
+            syn = os.path.join(work, "det_synthetic.py")
+            with open(syn, "w") as f:
+                f.write(f"_base_ = [{det!r}]\n"
+                        f"data = dict(_delete_=True, "
+                        f"type='SyntheticClipDataset', n_scenes=1, "
+                        f"frames_per_scene=2, input_size=(256, 704), "
+                        f"num_cams=6, occ_shape=(200, 200, 16), "
+                        f"batch_size=1)\n")
+            scfg = Config.fromfile(syn)
+            reset()
+            t0 = time.perf_counter()
+            res = loop.evaluate(scfg, state=state, trainer=trainer,
+                                max_samples=DET_EVAL_SAMPLES, device=dev)
+            torch.cuda.synchronize()
+            c = counts()
+            log(f"det: evaluate {json.dumps(res)} in "
+                f"{time.perf_counter() - t0:.1f} s; launches {c}")
+            if res["n_samples"] != DET_EVAL_SAMPLES or not (
+                    np.isfinite(res["mAP"]) and np.isfinite(res["NDS"])):
+                raise AssertionError(f"evaluate returned {res}")
+            expect("evaluate", c, {k: DET_EVAL_SAMPLES * v for k, v in dict(
+                PER_FRAME["forward"], conv3x3=per_pass).items()})
+            del trainer, model
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            CK.save_checkpoint(os.path.join(work, "ckpts"), state)
+            t_save = time.perf_counter() - t0
+            del state, s0
+            torch.cuda.empty_cache()
+            reset()
+            t0 = time.perf_counter()
+            out = test_tool.main([syn, "--work-dir", work,
+                                  "--max-samples", "1"])
+            torch.cuda.synchronize()
+            c = counts()
+            log(f"det: tools.test --max-samples 1 in "
+                f"{time.perf_counter() - t0:.1f} s (checkpoint saved in "
+                f"{t_save:.1f} s); launches {c}")
+            expect("tools.test", c, PER_FRAME["forward"])
+            if out["n_samples"] != 1 or not all(
+                    k in out for k in ("mAP", "NDS", "mATE", "mAAE")):
+                raise AssertionError(f"tools.test returned {out}")
+    finally:
+        loop.build_dataset = real_build
+
+    # 5. K7 at the detection head's shapes
+    head = check_k7(dev, K7_HEAD_SHAPES)
+    log(f"det phase: {time.perf_counter() - t_phase:.1f} s")
+    return stream_counts, train_counts, head
+
+
 def k1_captured(run):
     """``run()`` with K1's wrapper recording its inputs: (run's result,
     (args, kwargs) of K1's last call)."""
@@ -2130,6 +2590,98 @@ def profile_train(dev, steps=3):
                 f" ms self x{e.count // steps:<5d} {e.key[:70]}")
 
 
+def profile_call(fn, steps, label):
+    """``fn``'s time (CUDA events, mean of ``steps`` after two warm-up
+    calls), then ``torch.profiler`` over ``steps`` calls: kernel time a
+    call, device idle share, the top kernels and the host ops that take
+    the most CPU time themselves."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    ms = cuda_time(fn, iters=steps, warmup=2)
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    dkey = ("device_time_total" if hasattr(ev[0], "device_time_total")
+            else "cuda_time_total")
+    dt = (lambda e: getattr(e, dkey) / 1e3 / steps)
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in ev if e.device_type == cuda]
+    total = sum(dt(e) for e in kern)
+    log(f"{label}: {ms:.3f} ms (CUDA events, mean of {steps}); kernel time "
+        f"{total:.3f} ms, device idle share {max(0.0, 1 - total / ms):.3f}, "
+        f"{sum(e.count for e in kern) // steps} kernels a call")
+    for e in sorted(kern, key=dt, reverse=True)[:16]:
+        log(f"  kernel {dt(e):8.3f} ms x{e.count // steps:<4d} "
+            f"{e.key[:90]}")
+    host = sorted((e for e in ev if e.device_type != cuda),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in host[:10]:
+        log(f"  host op {e.self_cpu_time_total / 1e3 / steps:8.3f} ms self "
+            f"x{e.count // steps:<5d} {e.key[:70]}")
+
+
+def profile_det(dev, steps=3):
+    """The detection config (``fbbev-r50-det_16f.py``, bf16, random
+    weights) under ``torch.profiler`` (``--profile-det``): the eval
+    forward and the decode, each timed alone, then profiled together;
+    the train step with K7 (a history step on a batch with box GT)."""
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.models.centerpoint_head import (NUSCENES_TASKS,
+                                                         centerpoint_decode)
+    from fbbev_tpu_torch.models.fbocc import init_temporal_state
+    from fbbev_tpu_torch.train import Trainer
+    from fbbev_tpu_torch.train.loop import build_model
+    cfg = Config.fromfile(os.path.join(CONFIGS, DET))
+    cam = flagship_rig()
+    g = torch.Generator().manual_seed(1)
+    for k7 in (False, True):
+        model = build_model(cfg, device=dev, pallas3x3=k7,
+                            generator=torch.Generator().manual_seed(0))
+        fp = model.forward_projection
+        ts = [init_temporal_state(1, fp.grid_size, model.history_cat_num,
+                                  model.single_bev_num_channels,
+                                  dtype=model.dtype, device=dev)]
+        if not k7:
+            frame = det_frame(dev, g, cam, model, False, 1)
+            args = (NUSCENES_TASKS, model.pc_range,
+                    (float(fp.dx[0]), float(fp.dx[1])))
+
+            @torch.no_grad()
+            def forward():
+                out, ts[0] = model(frame, ts[0], train=False)
+                return out["det_preds"]
+
+            preds = forward()
+            f_ms = cuda_time(forward, iters=10)
+            d_ms = cuda_time(lambda: centerpoint_decode(preds, *args),
+                             iters=10)
+            log(f"det eval forward {f_ms:.3f} ms, decode {d_ms:.3f} ms (CUDA "
+                f"events, mean of 10; {nvidia_smi_line()})")
+            profile_call(lambda: centerpoint_decode(forward(), *args), steps,
+                         "det eval forward + decode")
+        else:
+            trainer = Trainer(model)
+            batch = train_batch(dev, torch.Generator().manual_seed(9), model,
+                                cam, False, 1)
+            del batch["gt_occupancy"]
+            boxes, labels = det_gt(0)
+            batch.update(gt_boxes=torch.from_numpy(boxes[None]).to(dev),
+                         gt_labels=torch.from_numpy(labels[None]).to(dev))
+            st = [trainer.init_state()]
+
+            def step():
+                st[0], ts[0], _ = trainer.train_step(st[0], ts[0], batch)
+
+            profile_call(step, steps, f"det train step with K7 "
+                         f"({nvidia_smi_line()})")
+        del model
+        torch.cuda.empty_cache()
+
+
 def kernel_name(mangled):
     """A readable name of a kernel from its mangled one: the last name of
     its nested name with its integer template arguments
@@ -2205,6 +2757,9 @@ def main():
     if "--profile-default" in sys.argv[1:]:
         profile_default(dev)
         return 0
+    if "--profile-det" in sys.argv[1:]:
+        profile_det(dev)
+        return 0
     if "--profile-occ" in sys.argv[1:]:
         profile_occ(dev)
         return 0
@@ -2242,6 +2797,11 @@ def main():
         # the training and evaluation loop alone (run_loop)
         run_loop(dev)
         log(f"chip_smoke --loop: {time.perf_counter() - T0:.1f} s")
+        return 0
+    if "--det" in sys.argv[1:]:
+        # the detection path alone (run_det)
+        run_det(dev)
+        log(f"chip_smoke --det: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--config" in sys.argv[1:]:
         # the config-built entry alone (run_config)
@@ -2292,6 +2852,14 @@ def main():
         k["loop_launches"] = loop_eval[k["name"]]
     for k in k7:
         k["loop_launches"] = loop_train[k["name"]]
+    det_stream, det_train, k7_head = run_det(dev)
+    for k in kernels:
+        k["det_launches"] = det_stream[k["name"]]
+    for k, h in zip(k7, k7_head):
+        k["det_launches"] = det_train[k["name"]]
+        k.update({f"det_head_{key}": h[key] for key in (
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "library_ms", "library_graph_ms")})
     kernels[3].update(t1_ms=k1_t1["ms"], t1_graph_ms=k1_t1["graph_ms"],
                       t1_plain_ms=k1_t1["plain_ms"],
                       t1_bound_ms=k1_t1["bound_ms"],

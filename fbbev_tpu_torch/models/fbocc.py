@@ -1,6 +1,6 @@
-"""FB-OCC: image encoder, depth net, forward (LSS) and backward
-projection, SoloFusion temporal fusion, 3D encoder and occupancy head.
-Counterpart of ``fbbev_tpu/models/fbocc.py``.
+"""FB-OCC / FB-BEV: image encoder, depth net, forward (LSS) and backward
+projection, SoloFusion temporal fusion, 3D encoder, occupancy head and
+CenterPoint detection head.  Counterpart of ``fbbev_tpu/models/fbocc.py``.
 
 The temporal history is an explicit :class:`TemporalState` carried from
 frame to frame, in one of two layouts (as in the JAX package):
@@ -29,6 +29,7 @@ import torch.nn as nn
 
 from fbbev_tpu_torch import geometry
 from fbbev_tpu_torch.models.bevformer import BackwardProjection
+from fbbev_tpu_torch.models.centerpoint_head import CenterHead, SeparateHead
 from fbbev_tpu_torch.models.depth_net import CM_DepthNet, get_mlp_input
 from fbbev_tpu_torch.models.fpn import CustomFPN
 from fbbev_tpu_torch.models.fpn3d import FPN3D
@@ -101,10 +102,12 @@ class FBOCC(nn.Module):
 
     * ``backbone_type`` ``"ResNet"`` of ``backbone_depth`` 10, 18, 34, 50
       or 101 (the other backbones are ROADMAP M12 and raise);
-      ``use_detection_head`` (ROADMAP M11) raises;
     * ``use_backward_projection`` off: no BEVFormer head, the LSS voxels
       go straight to the history fusion; ``use_occupancy_head`` off: no
-      head and no ``occ_logits``;
+      head and no ``occ_logits``; ``use_detection_head`` on (FB-BEV,
+      ``fbbev-r50-det_16f.py``): the CenterPoint head
+      (``pts_bbox_head``) on the finest 3D-encoder level with Z folded
+      into channels, ``det_preds`` among the outputs;
     * ``pc_range`` reaches the backward projection (its anchors span it
       when it has no grid of its own);
     * ``use_depth_supervision`` is the ``Trainer``'s default.  The JAX
@@ -158,10 +161,6 @@ class FBOCC(nn.Module):
             raise NotImplementedError(
                 f"backbone_type {backbone_type!r}: the port has the ResNet "
                 f"backbone only; the others are ROADMAP M12")
-        if use_detection_head:
-            raise NotImplementedError(
-                "use_detection_head: the port has no detection head yet "
-                "(ROADMAP M11)")
         self.grid_config = dict(grid_config or DEFAULT_GRID_CONFIG)
         self.bevformer_grid_config = dict(
             bevformer_grid_config or DEFAULT_BEVFORMER_GRID)
@@ -212,6 +211,10 @@ class FBOCC(nn.Module):
             pallas_conv3d=pallas_conv3d, coarse_pred=coarse_pred,
             occ_tail=occ_tail, occ_fuse=occ_fuse)
             if use_occupancy_head else None)
+        # the head sees the finest 3D level with Z folded into channels
+        self.pts_bbox_head = (CenterHead(
+            voxel_out_channels * self.forward_projection.grid_size[2],
+            pallas3x3=pallas3x3) if use_detection_head else None)
         init_weights(self, generator)
         self.to(device=device)
         self.cast(dtype)
@@ -387,7 +390,9 @@ class FBOCC(nn.Module):
         sequence_group_idx, curr_to_prev_ego_rt.  Returns (outputs, new
         state); outputs hold ``depth``, ``context``, ``bev_refined`` (with
         the backward projection), ``seq_mismatch`` and ``occ_logits`` (B,
-        Y, X, Z, classes) f32 (with the occupancy head)."""
+        Y, X, Z, classes) f32 (with the occupancy head) and ``det_preds``
+        (with the detection head: per task a dict of (B, Y, X, ch) f32
+        maps, as :class:`CenterHead` returns)."""
         self.train(train)
         cam = geometry.CamParams(*(batch[k] for k in geometry.CamParams._fields))
         feats = self.image_encoder(batch["imgs"])
@@ -404,19 +409,32 @@ class FBOCC(nn.Module):
         fused, new_state, seq_mismatch = fuse(bev, state, batch, cam.bda,
                                               do_history)
         outputs["seq_mismatch"] = seq_mismatch
+        # without the occupancy head only the finest level is read
         vox = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(
-            fused.permute(0, 4, 1, 2, 3)))
+            fused.permute(0, 4, 1, 2, 3)),
+            n_out=None if self.occupancy_head is not None else 1)
         if self.occupancy_head is not None:
             outputs["occ_logits"] = self.occupancy_head(
                 vox, return_labels=False)
+        if self.pts_bbox_head is not None:
+            # Z folded into channels as JAX's reshape of (B, Y, X, Z, C)
+            # to (B, Y, X, Z*C): channel z*C + c.  This is
+            # vox[0].permute(0, 4, 1, 2, 3).reshape(B, Z*C, Y, X), made
+            # in channels-last memory (free when vox[0] is in
+            # channels_last_3d), which K7 and cuDNN read
+            B, C, Y, X, Z = vox[0].shape
+            bev2d = vox[0].permute(0, 2, 3, 4, 1).reshape(
+                B, Y, X, Z * C).permute(0, 3, 1, 2)
+            outputs["det_preds"] = self.pts_bbox_head(bev2d)
         return outputs, new_state
 
 
 def init_weights(model: nn.Module, generator: Optional[torch.Generator]):
     """Random weights from ``generator``: LeCun-normal conv/linear kernels
-    (the JAX package's default), zero biases, identity BatchNorm, unit
-    normal embeddings.  The sampling-offset and attention-weight layers
-    keep their directional / zero init."""
+    (the JAX package's default), zero biases (the detection heatmaps'
+    -2.19), identity BatchNorm, unit normal embeddings.  The
+    sampling-offset and attention-weight layers keep their directional /
+    zero init."""
     g = generator or torch.Generator().manual_seed(0)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -434,3 +452,7 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator]):
                 m.reset_parameters()
             elif isinstance(m, nn.Embedding):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=g))
+        # after the loop: it zeroed the biases the heads set
+        for m in model.modules():
+            if isinstance(m, SeparateHead):
+                m.init_heatmap_bias()

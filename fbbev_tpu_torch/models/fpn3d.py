@@ -28,9 +28,14 @@ class FPN3D(nn.Module):
                                      pallas_conv3d=pallas_conv3d))
             for _ in in_channels)
 
-    def forward(self, inputs):
+    def forward(self, inputs, n_out=None):
+        """The output levels, the finest first; only the first ``n_out``
+        (all by default): a model that reads the finest level alone (the
+        detection head without the occupancy head) skips the other output
+        convs, which XLA drops from the JAX package's compiled forward
+        as dead code."""
         lat = [m(x) for m, x in zip(self.lateral_convs, inputs)]
         for i in range(len(lat) - 1, 0, -1):
             lat[i - 1] = lat[i - 1] + resize_trilinear(lat[i],
                                                        lat[i - 1].shape[2:])
-        return [m(x) for m, x in zip(self.fpn_convs, lat)]
+        return [m(x) for m, x in zip(self.fpn_convs[:n_out], lat)]

@@ -2,7 +2,8 @@
 ``fbbev_tpu/registry.py``: a config's ``dict(type='FBOCC', ...)`` names a
 registered constructor, the other keys are its arguments.  The port's
 ``FBOCC`` is registered in :data:`DETECTORS`, its datasets and dataset
-wrappers in :data:`DATASETS`.
+wrappers in :data:`DATASETS`, the detection heads (``CenterHead``,
+``FRPN``) in :data:`HEADS`.
 """
 
 from __future__ import annotations
@@ -70,3 +71,4 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry, **extra_kwargs):
 # reference mmdet3d's ten; the others come with the modules that use them).
 DETECTORS = Registry("detectors")
 DATASETS = Registry("datasets")
+HEADS = Registry("heads")

@@ -1,6 +1,9 @@
-"""Evaluate a trained model: streaming occupancy mIoU over the val split,
-from the latest checkpoint under the work dir.  Counterpart of the JAX
-package's ``tools/test.py``, with its flags and ``--device``.
+"""Evaluate a trained model over the val split, from the latest
+checkpoint under the work dir: streaming occupancy mIoU, and for a
+detection config (``fbbev-r50-det_16f.py``) the nuScenes mAP, TP errors
+and NDS.  Prints every key :func:`~fbbev_tpu_torch.train.loop.evaluate`
+returns.  Counterpart of the JAX package's ``tools/test.py``, with its
+flags and ``--device``.
 
 Usage:
 
@@ -24,7 +27,8 @@ def parse_args(argv=None):
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--no-ema", action="store_true")
     p.add_argument("--out-csv", default=None,
-                   help="append per-class IoU to a results.csv")
+                   help="append the results (per-class IoU, mAP, NDS, "
+                   "...) to a results.csv")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)

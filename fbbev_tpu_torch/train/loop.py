@@ -33,16 +33,20 @@ from fbbev_tpu_torch.config import Config
 from fbbev_tpu_torch.data import (
     EvalGroupStreamSampler, InfiniteGroupStreamSampler, SyntheticClipDataset,
     collate)
-from fbbev_tpu_torch.evaluation import MIoUMetric, occ_pred_to_cvpr_format
+from fbbev_tpu_torch.evaluation import (
+    DetectionMetric, MIoUMetric, occ_pred_to_cvpr_format)
+from fbbev_tpu_torch.models.centerpoint_head import (
+    NUSCENES_CLASSES, NUSCENES_TASKS, centerpoint_decode)
 from fbbev_tpu_torch.models.builder import build_detector
 from fbbev_tpu_torch.models.fbocc import init_temporal_state
 from fbbev_tpu_torch.train.checkpoints import (
     latest_step, restore_checkpoint, save_checkpoint)
 from fbbev_tpu_torch.train.trainer import Trainer, make_optimizer
 
-# sample keys only the host-side metric reads: never copied to the device
+# sample keys only the host-side metrics read in evaluation: never copied
+# to the device there (training copies every key)
 _HOST_ONLY = ("visible_mask", "gt_attrs", "gt_occupancy",
-              "gt_occupancy_cvpr", "gt_depth")
+              "gt_occupancy_cvpr", "gt_depth", "gt_boxes", "gt_labels")
 
 
 def build_model(cfg: Config, device="cuda",
@@ -258,8 +262,11 @@ def evaluate(cfg: Config, state=None, trainer=None,
              use_ema: bool = True,
              work_dir: Optional[str] = None,
              tta: bool = False, device="cuda", **routes) -> Dict[str, float]:
-    """Streaming occupancy evaluation -> per-class IoU + Overall mIoU and
-    ``n_samples``.
+    """Streaming evaluation -> with the occupancy head per-class IoU +
+    Overall mIoU, with the detection head the nuScenes detection metrics
+    (``AP_<class>``, mAP, the TP errors mATE .. mAAE, NDS), and
+    ``n_samples``.  Samples without ``gt_boxes`` add nothing to the
+    detection metrics.
 
     Without ``state`` the latest checkpoint under ``<work_dir>/ckpts`` is
     evaluated on a model built from ``cfg`` (``routes`` as
@@ -269,8 +276,9 @@ def evaluate(cfg: Config, state=None, trainer=None,
     reference's CustomDistMultiScaleFlipAug3D (``test_time_aug.py:319-392``,
     one variant per rank there) are evaluated as 8 sequential passes here
     (each with fresh temporal state and consistently flipped GT; variants
-    merge through the shared confusion matrix -- the reference never
-    un-flips predictions, its ``aug_test`` is unreachable).
+    merge through the shared confusion matrix and detection metric -- the
+    reference never un-flips predictions, its ``aug_test`` is
+    unreachable).
     """
     _single_device(cfg)
     dev = torch.device(device)
@@ -280,8 +288,6 @@ def evaluate(cfg: Config, state=None, trainer=None,
             generator=torch.Generator().manual_seed(int(cfg.get("seed", 0))),
             **routes))
     model = trainer.model
-    if getattr(model, "use_detection_head", False):
-        raise NotImplementedError("detection evaluation is ROADMAP M11")
     dataset = build_dataset(cfg, "val")
     batch_size = cfg.data.get("batch_size", 2)
     if state is None:
@@ -290,6 +296,10 @@ def evaluate(cfg: Config, state=None, trainer=None,
         state = restore_checkpoint(ckpt_dir, trainer.init_state())
 
     metric = MIoUMetric()
+    det_metric = decode_fn = None
+    if model.use_detection_head:
+        det_metric = DetectionMetric(NUSCENES_CLASSES)
+        decode_fn = _make_decode_fn(model)
     n_done = 0
     if tta:
         if not hasattr(dataset, "tta_config"):
@@ -308,17 +318,37 @@ def evaluate(cfg: Config, state=None, trainer=None,
             model.single_bev_num_channels, dtype=model.dtype, device=dev)
         n_done += _eval_pass(
             sampler, dataset, trainer, state, tstate, metric, use_ema, dev,
-            None if max_samples is None else max_samples - n_done)
+            None if max_samples is None else max_samples - n_done,
+            det_metric, decode_fn)
         if max_samples is not None and n_done >= max_samples:
             break
     results = metric.count_miou() if model.use_occupancy_head else {}
+    if det_metric is not None:
+        results.update(det_metric.compute())
     results["n_samples"] = n_done
     return results
 
 
+def _make_decode_fn(model):
+    """The model's CenterPoint decode of a whole batch at once
+    (``centerpoint_decode``: one sort and one circle-NMS scan for every
+    task of every sample), as the JAX package's jitted, batch-vmapped
+    ``_make_decode_fn``: det_preds -> (boxes (B, 6K, 9), scores (B, 6K),
+    labels (B, 6K))."""
+    fp = model.forward_projection
+    vs = (float(fp.dx[0]), float(fp.dx[1]))
+    pc_range = tuple(model.pc_range)
+
+    def decode(preds):
+        return centerpoint_decode(preds, NUSCENES_TASKS, pc_range, vs)
+
+    return decode
+
+
 def _eval_pass(sampler, dataset, trainer, state, tstate, metric, use_ema,
-               device, max_samples) -> int:
-    """One streaming pass of ``sampler`` into ``metric``: the number of
+               device, max_samples, det_metric=None, decode_fn=None) -> int:
+    """One streaming pass of ``sampler`` into ``metric`` (and, with the
+    detection head, ``det_metric`` through ``decode_fn``): the number of
     valid samples evaluated (at most about ``max_samples``)."""
     n_done = 0
     for idxs, valid in sampler:
@@ -332,6 +362,11 @@ def _eval_pass(sampler, dataset, trainer, state, tstate, metric, use_ema,
         # metric runs
         logits = (outputs["occ_logits"].float().cpu().numpy()
                   if "occ_logits" in outputs else None)
+        det = None
+        if det_metric is not None and "det_preds" in outputs:
+            # the batch's decoded boxes, scores and labels to the host
+            det = tuple(a.cpu().numpy()
+                        for a in decode_fn(outputs["det_preds"]))
         for b, ok in enumerate(valid):
             if not ok:
                 continue
@@ -340,6 +375,13 @@ def _eval_pass(sampler, dataset, trainer, state, tstate, metric, use_ema,
                 gt = np.asarray(samples[b].get(
                     "gt_occupancy_cvpr", samples[b].get("gt_occupancy")))
                 metric.add_batch(pred, gt, samples[b].get("visible_mask"))
+            if det is not None and "gt_boxes" in samples[b]:
+                attrs = samples[b].get("gt_attrs")
+                det_metric.add_sample(
+                    det[0][b], det[1][b], det[2][b],
+                    np.asarray(samples[b]["gt_boxes"]),
+                    np.asarray(samples[b]["gt_labels"]),
+                    gt_attrs=None if attrs is None else list(attrs))
             n_done += 1
         if max_samples is not None and n_done >= max_samples:
             break

@@ -30,6 +30,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from fbbev_tpu_torch.models import losses as loss_lib
+from fbbev_tpu_torch.models.centerpoint_head import (
+    NUSCENES_CLASSES, NUSCENES_TASKS, centerpoint_loss, centerpoint_targets)
 from fbbev_tpu_torch.models.depth_net import depth_loss
 from fbbev_tpu_torch.models.fbocc import DEFAULT_GRID_CONFIG, TemporalState
 from fbbev_tpu_torch.models.occ_head import occ_losses
@@ -213,7 +215,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def losses(self, outputs: Dict[str, torch.Tensor],
                batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The occupancy losses and the depth loss, float32."""
+        """The occupancy losses, the detection losses (per task
+        ``task{t}_loss_heatmap`` and ``task{t}_loss_bbox``, on targets from
+        ``gt_boxes`` / ``gt_labels``) and the depth loss, float32."""
         out = {}
         if "occ_logits" in outputs and "gt_occupancy" in batch:
             logits = outputs["occ_logits"]
@@ -222,6 +226,13 @@ class Trainer:
                 logits.device)
             out = occ_losses(logits, batch["gt_occupancy"],
                              self._class_weights, dist_w, lovasz=self.lovasz)
+        if "det_preds" in outputs and "gt_boxes" in batch:
+            fp = self.model.forward_projection
+            targets = centerpoint_targets(
+                batch["gt_boxes"], batch["gt_labels"], NUSCENES_TASKS,
+                NUSCENES_CLASSES, (int(fp.nx[0]), int(fp.nx[1])),
+                self.model.pc_range, (float(fp.dx[0]), float(fp.dx[1])))
+            out.update(centerpoint_loss(outputs["det_preds"], targets))
         if self.use_depth_supervision and "gt_depth" in batch:
             gc = getattr(self.model, "grid_config", DEFAULT_GRID_CONFIG)
             out["loss_depth"] = depth_loss(

@@ -5,7 +5,9 @@ weights from the JAX package is a relayout: its ``params`` /
 ``batch_stats`` trees (nested dicts of numpy arrays) become a flat state
 dict in PyTorch layouts, loaded with ``load_state_dict(strict=True)``.
 The rules are this package's own copy of the flagship FB-OCC rules of
-``fbbev_tpu/train/checkpoint_convert.py`` (export direction):
+``fbbev_tpu/train/checkpoint_convert.py`` (export direction), and rules of
+its own for the detection heads (``pts_bbox_head``, ``FRPN``), for which
+that file has none:
 
 * conv kernel (kh, kw, I, O) / (kd, kh, kw, I, O) -> (O, I, k...)
 * transposed-conv kernel (kd, kh, kw, I, O), stored unflipped for
@@ -18,10 +20,12 @@ The rules are this package's own copy of the flagship FB-OCC rules of
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from fbbev_tpu_torch.models.centerpoint_head import BRANCHES
 
 
 class _Exporter:
@@ -163,6 +167,9 @@ def _rules(b, spec: dict) -> None:
 
     if spec["occupancy_head"]:
         occ_head_rules(b, "occupancy_head.", ("occupancy_head",))
+    if spec["detection_head"]:
+        centerpoint_head_rules(b, "pts_bbox_head.", ("pts_bbox_head",),
+                               spec["detection_head"])
 
 
 def _backward_projection_rules(b) -> None:
@@ -204,6 +211,26 @@ def occ_head_rules(b: _Exporter, src: str, dst: Tuple[str, ...]) -> None:
     b.conv(f"{src}occ_pred_conv.3", dst + ("pred_conv2",), ndim=3)
 
 
+def centerpoint_head_rules(b: _Exporter, src: str, dst: Tuple[str, ...],
+                           n_tasks: int) -> None:
+    """The ``CenterHead`` rules (the reference's mmdet3d names): port names
+    prefixed by ``src``, JAX paths under ``dst``, ``n_tasks`` tasks."""
+    b.convbn(f"{src}shared_conv.conv", f"{src}shared_conv.bn",
+             dst + ("shared_conv",))
+    for t in range(n_tasks):
+        for name in BRANCHES:
+            p, d = f"{src}task_heads.{t}.{name}", dst + (f"task{t}",)
+            b.convbn(f"{p}.0.conv", f"{p}.0.bn", d + (f"{name}_conv0",))
+            b.conv(f"{p}.1", d + (f"{name}_final",))
+
+
+def frpn_rules(b: _Exporter, src: str, dst: Tuple[str, ...]) -> None:
+    """The ``FRPN`` rules: ``mask_net.{0,1,3}`` from JAX's ``conv1``
+    ({conv, bn}) and ``conv2``."""
+    b.convbn(f"{src}mask_net.0", f"{src}mask_net.1", dst + ("conv1",))
+    b.conv(f"{src}mask_net.3", dst + ("conv2",))
+
+
 def _leaves(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -219,7 +246,9 @@ def _jax_spec(params: Dict[str, Any]) -> dict:
                    for i in range(1, 5))
     return dict(blocks=blocks, convs=3 if "conv3" in bb["layer1_0"] else 2,
                 backward_projection="backward_projection" in params,
-                occupancy_head="occupancy_head" in params)
+                occupancy_head="occupancy_head" in params,
+                detection_head=sum(1 for k in params.get("pts_bbox_head", {})
+                                   if k.startswith("task")))
 
 
 def _model_spec(model: torch.nn.Module) -> dict:
@@ -229,15 +258,27 @@ def _model_spec(model: torch.nn.Module) -> dict:
                              for i in range(1, 5)),
                 convs=3 if hasattr(bb.layer1[0], "conv3") else 2,
                 backward_projection=model.backward_projection is not None,
-                occupancy_head=model.occupancy_head is not None)
+                occupancy_head=model.occupancy_head is not None,
+                detection_head=(0 if model.pts_bbox_head is None
+                                else len(model.pts_bbox_head.task_heads)))
 
 
 def to_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """JAX ``{'params', 'batch_stats'}`` (nested dicts of arrays) -> the
-    port's state dict (numpy, PyTorch layouts).  Raises if any JAX leaf
-    is left unconverted."""
+    """JAX ``{'params', 'batch_stats'}`` (nested dicts of arrays) of an
+    FBOCC -> the port's state dict (numpy, PyTorch layouts).  Raises if
+    any JAX leaf is left unconverted."""
+    return module_state_dict(
+        variables, lambda b: _rules(b, _jax_spec(variables["params"])))
+
+
+def module_state_dict(variables: Dict[str, Any],
+                      rules: Callable[[_Exporter], None]
+                      ) -> Dict[str, np.ndarray]:
+    """JAX variables of any module -> the port's state dict by ``rules``
+    (e.g. ``lambda b: frpn_rules(b, "", ())`` for a lone ``FRPN``).
+    Raises if any JAX leaf is left unconverted."""
     b = _Exporter(variables["params"], variables.get("batch_stats", {}))
-    _rules(b, _jax_spec(variables["params"]))
+    rules(b)
     left = [p for t in ("params", "batch_stats")
             for p in ((t,) + q for q in _leaves(b.trees[t]))
             if p not in b.used]
@@ -272,12 +313,15 @@ def partial_state_dict(variables: Dict[str, Any], model: torch.nn.Module
     return b.sd, unused
 
 
-def load_jax_variables(model: torch.nn.Module,
-                       variables: Dict[str, Any]) -> torch.nn.Module:
-    """Load JAX variables into ``model`` with ``strict=True``; BatchNorm's
+def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any],
+                       rules: Optional[Callable[[_Exporter], None]] = None
+                       ) -> torch.nn.Module:
+    """Load JAX variables into ``model`` with ``strict=True``: an FBOCC's,
+    or any module's by ``rules`` (:func:`module_state_dict`).  BatchNorm's
     ``num_batches_tracked`` counters, which JAX does not keep, are 0."""
-    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
-          for k, v in to_state_dict(variables).items()}
+    sd = (to_state_dict(variables) if rules is None
+          else module_state_dict(variables, rules))
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
     for k in model.state_dict():
         if k.endswith("num_batches_tracked") and k not in sd:
             sd[k] = torch.zeros((), dtype=torch.long)

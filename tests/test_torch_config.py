@@ -30,7 +30,7 @@ FLAGSHIP = "fbocc-r50-cbgs_depth_16f.py"
 NESTED = "fbocc-r50-cbgs_depth_16f_nested.py"
 BUILT = (FLAGSHIP, NESTED, "fbocc-r50_depth_1f.py",
          "fbocc-r50-tiny_synthetic.py", "fbocc-r50_synthetic_smoke.py",
-         "fbocc-r50_synthetic_long.py")
+         "fbocc-r50_synthetic_long.py", "fbbev-r50-det_16f.py")
 
 
 def port_cfg(name):
@@ -128,8 +128,7 @@ def test_flat_and_nested_flagship_build_the_same_model():
 
 
 @pytest.mark.parametrize("name, milestone", [
-    ("fbocc-vov99_depth_16f_512x1408.py", "M12"),
-    ("fbbev-r50-det_16f.py", "M11")])
+    ("fbocc-vov99_depth_16f_512x1408.py", "M12")])
 def test_unported_configs_raise(name, milestone):
     from fbbev_tpu_torch.train.loop import build_model
     with pytest.raises(NotImplementedError, match=milestone):

@@ -765,3 +765,138 @@ def test_loop_train_resume_evaluate_on_card(dev):
     assert res["n_samples"] == 3 and np.isfinite(res["Overall"])
     assert delta == dict(k7=0, k7_dgrad=0, k1=0, k2=0, k3=3, k5=0, k6=0,
                          k8=0, k9=0, k10=0, k1_f32=3, k4=3), delta
+
+
+def _det_head_outputs(g, B, H, W, dev):
+    """Random per-task head outputs (B, H, W, ch) float32 on ``dev``, the
+    heatmaps rounded to bf16 (ties, as a bf16 model's)."""
+    from fbbev_tpu_torch.models.centerpoint_head import (NUSCENES_TASKS,
+                                                         REG_HEADS)
+    out = []
+    for tc in NUSCENES_TASKS:
+        p = {n: torch.randn(B, H, W, ch, generator=g)
+             for n, ch in REG_HEADS}
+        p["heatmap"] = (torch.randn(B, H, W, len(tc), generator=g) * 1.5
+                        - 1.0).bfloat16().float()
+        out.append({k: v.to(dev) for k, v in p.items()})
+    return out
+
+
+def test_decode_on_card_equals_cpu(dev):
+    """``centerpoint_decode`` (B=2, six tasks, 100 x 100, bf16-rounded
+    heatmaps full of ties) on the card against the CPU on the same head
+    outputs: keep masks and labels equal, scores within 1e-6 (the
+    sigmoid's exp may round differently), boxes within 1e-5 of max(1,
+    |value|)."""
+    from fbbev_tpu_torch.models.centerpoint_head import (NUSCENES_TASKS,
+                                                         centerpoint_decode)
+    preds = _det_head_outputs(torch.Generator().manual_seed(20), 2, 100, 100,
+                              dev)
+    args = (NUSCENES_TASKS, (-40.0, -40.0, -1.0, 40.0, 40.0, 5.4),
+            (0.8, 0.8))
+    got = [a.cpu() for a in centerpoint_decode(preds, *args)]
+    want = centerpoint_decode([{k: v.cpu() for k, v in p.items()}
+                               for p in preds], *args)
+    assert tuple(got[0].shape) == (2, 600, 9)
+    assert torch.equal(got[1] >= 0, want[1] >= 0)
+    assert torch.equal(got[2], want[2])
+    assert (got[1] - want[1]).abs().max() <= 1e-6
+    kept = want[1] >= 0
+    assert 0 < int(kept.sum()) < kept.numel()
+    d = (got[0] - want[0]).abs() / want[0].abs().clamp(min=1.0)
+    assert d[kept].max() <= 1e-5
+
+
+def test_tiny_detection_config_on_card_matches_cpu(dev):
+    """The tiny config with the detection head (float32, TF32 off), the
+    same seeded weights on the card and on the CPU, 3 frames: every
+    ``det_preds`` map within 1e-3 of max(1, |value|), the decodes agreeing
+    on >= 98% of rows (keep and label), K1's f32 kernel and K3 launched
+    each frame."""
+    import os
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.models.centerpoint_head import (NUSCENES_TASKS,
+                                                         centerpoint_decode)
+    from fbbev_tpu_torch.models.fbocc import init_temporal_state
+    from fbbev_tpu_torch.train.loop import build_model
+    cfg = Config.fromfile(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "fbbev_tpu_torch", "configs", "fbocc-r50-tiny_synthetic.py"))
+    cfg.merge_from_options({"model.use_occupancy_head": "False",
+                            "model.use_detection_head": "True"})
+    rng = np.random.RandomState(21)
+    rots = [np.stack([[np.sin(th), -np.cos(th), 0.0], [0.0, 0.0, -1.0],
+                      [np.cos(th), np.sin(th), 0.0]], 1)
+            for th in (0.0, np.pi)]
+    cam = dict(rots=np.stack(rots),
+               trans=np.array([[0.0137, 0.0137, 1.5137],
+                               [0.1137, 0.0637, 1.5137]]),
+               intrins=np.tile([[110.0, 0, 88], [0, 110.0, 32], [0, 0, 1]],
+                               (2, 1, 1)),
+               post_rots=np.tile(np.eye(3), (2, 1, 1)),
+               post_trans=np.zeros((2, 3)), bda=np.eye(3))
+    frames = []
+    for i in range(3):
+        f = {k: np.asarray(v, np.float32)[None] for k, v in cam.items()}
+        c2p = np.eye(4, dtype=np.float32)
+        c2p[0, 3] = 0.5 * (i > 0)
+        f.update(imgs=rng.randn(1, 2, 64, 176, 3).astype(np.float32),
+                 start_of_sequence=np.array([i == 0]),
+                 sequence_group_idx=np.zeros(1, np.int32),
+                 curr_to_prev_ego_rt=c2p[None])
+        frames.append(f)
+    out = {}
+    for d in ("cpu", dev):
+        m = build_model(cfg, device=d,
+                        generator=torch.Generator().manual_seed(5))
+        fp = m.forward_projection
+        ts = init_temporal_state(1, fp.grid_size, m.history_cat_num,
+                                 m.single_bev_num_channels, device=d)
+        k1, k3 = K1.f32_launches, K3.launches
+        out[d] = []
+        with torch.no_grad():
+            for f in frames:
+                o, ts = m({k: torch.from_numpy(v).to(d)
+                           for k, v in f.items()}, ts, train=False)
+                dec = centerpoint_decode(o["det_preds"], NUSCENES_TASKS,
+                                         m.pc_range, (float(fp.dx[0]),
+                                                      float(fp.dx[1])))
+                out[d].append(([{k: v.cpu() for k, v in p.items()}
+                                for p in o["det_preds"]],
+                               [a.cpu() for a in dec]))
+        if d != "cpu":
+            assert (K1.f32_launches - k1, K3.launches - k3) == (3, 3)
+    for (pc, dc), (pg, dg) in zip(out["cpu"], out[dev]):
+        for a, b in zip(pg, pc):
+            for k in b:
+                assert (a[k] - b[k]).abs().max() <= 1e-3 * max(
+                    1.0, b[k].abs().max().item()), k
+        same = ((dg[1] >= 0) == (dc[1] >= 0)) & (dg[2] == dc[2])
+        assert same.float().mean() >= 0.98
+
+
+@pytest.mark.parametrize("shape", [(1, 100, 100, 2048, 64),
+                                   (1, 100, 100, 64, 64)],
+                         ids=["shared_conv", "branch_conv"])
+def test_k7_at_the_detection_head_shapes(dev, shape):
+    """K7 at the detection head's two shapes (the shared conv on the
+    Z-folded BEV, a branch conv), bf16, forward and input gradient
+    against the plain version: 2e-2 of max(1, |y|), as
+    ``test_k7_kernel_matches_plain``."""
+    g = torch.Generator(device="cpu").manual_seed(22)
+    N, H, W, Cin, Cout = shape
+    cl = torch.channels_last
+    x = torch.randn(N, Cin, H, W, generator=g).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    w = (torch.randn(Cout, Cin, 3, 3, generator=g) * 0.5
+         / (9 * Cin) ** 0.5).to(dev, torch.bfloat16)
+    gy = torch.randn(N, Cout, H, W, generator=g).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    f0, d0 = K7.launches, K7.dgrad_launches
+    pairs = ((K7.conv3x3_s1(x, w), K7.conv3x3_s1_plain(x, w)),
+             (K7._dgrad(gy, w),
+              K7.conv3x3_s1_plain(gy, w.flip(2, 3).transpose(0, 1))))
+    assert (K7.launches, K7.dgrad_launches) == (f0 + 1, d0 + 1)
+    for got, want in pairs:
+        d = (got.float() - want.float()).abs()
+        assert (d / want.float().abs().clamp(min=1.0)).max() <= 2e-2

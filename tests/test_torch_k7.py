@@ -34,6 +34,11 @@ K7_SHAPES = [((6, 64, 176, 64, 64), 3), ((6, 32, 88, 128, 128), 3),
              ((4, 50, 50, 256, 256), 3), ((8, 100, 100, 256, 128), 3),
              ((4, 50, 50, 256, 128), 3), ((2, 25, 25, 256, 128), 3)]
 
+# and in the FB-BEV detection head's (``fbbev-r50-det_16f.py`` with
+# pallas3x3, B=1, ``chip_smoke.py::K7_HEAD_SHAPES``): the shared conv on
+# the Z-folded BEV (8 x 256 channels) and the 36 branch convs
+K7_HEAD_SHAPES = [((1, 100, 100, 2048, 64), 1), ((1, 100, 100, 64, 64), 36)]
+
 
 def _check_plan(p, N, H, W, Cin, Cout, sms=K6.SMS):
     """What the kernel and its launch need of a plan."""
@@ -59,6 +64,19 @@ def test_k7_bf16_plan_of_the_train_convs(shape):
     forward (Cin -> Cout) and input gradient (Cout -> Cin): a legal box,
     tiling and split, within the card's shared memory."""
     N, H, W, Cin, Cout = shape
+    for a, b in ((Cin, Cout), (Cout, Cin)):
+        _check_plan(K7.plan_bf16(N, H, W, a, b), N, H, W, a, b)
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in K7_HEAD_SHAPES],
+                         ids=["shared_conv", "branch_conv"])
+def test_k7_bf16_plan_of_the_detection_head(shape):
+    """The detection head's convs take K7 (the routing gate holds, as
+    JAX's ``_pallas3x3_eligible`` with the port's Cout % 16), and the
+    bf16 kernel has a legal plan for each, forward and input gradient
+    (the shared conv's dgrad 64 -> 2048)."""
+    N, H, W, Cin, Cout = shape
+    assert K7.supports((N, Cin, H, W), Cout)
     for a, b in ((Cin, Cout), (Cout, Cin)):
         _check_plan(K7.plan_bf16(N, H, W, a, b), N, H, W, a, b)
 
@@ -145,6 +163,8 @@ def _plans_to_emulate(N, H, W, Cin, Cout, which):
 @pytest.mark.parametrize("shape", [
     (2, 5, 11, 80, 48),    # ragged edge; Cin 80: a box zero-filled past Cin
     (1, 9, 20, 64, 144),   # a ragged 128-wide N tile
+    (1, 6, 10, 2048, 64),  # the detection head's shared conv, cut in space
+    (1, 5, 12, 64, 64),    # its branch convs, cut in space
 ])
 def test_k7_bf16_tiling_matches_pallas_conv(shape, which):
     """The bf16 kernel's decomposition, emulated in f32 from the wrapper's
