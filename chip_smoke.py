@@ -78,6 +78,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
     clips with box GT; K7 against its plain version at the head's two
     shapes.  Adds ``det_launches`` (and K7's ``det_head_*`` times) to
     the kernels' entries.
+13. The other backbones (``run_vov``): the FB-OCC large variant
+    ``fbocc-vov99_depth_16f_512x1408.py`` (VoVNet-99, 6 cameras at
+    512x1408, a 32x88 feature map) built through
+    ``train.loop.build_model`` with perturbed BatchNorms, folded and
+    unfolded, 5 frames each through ``FixedRigPipeline`` (label
+    agreement, finite logits, exact K1-K4 launches);
+    ``FixedRigPipeline.benchmark(iters=20)`` on the folded one with its
+    peak memory; K2 (1,351,680 points) and K3 (32x88 maps, the
+    global-row plan) against their plain versions at these shapes; 2 + 2
+    train steps with K7 and each OSA block checkpointed (finite losses, a
+    gradient in every OSA block and module, K7's launches as the model's
+    convs predict; ms per step, peak memory) and K7 against its plain
+    version at every VoVNet shape; ConvNeXt-base, Swin-base and DLA-34 as
+    FBOCC's backbone at 256x704, 2 frames each with exact launches; the
+    tiny config with a V-19-eSE backbone in float32 on the card and on
+    the CPU.  Adds ``vov_launches`` to K1-K4's entries and the entries
+    ``vov_bev_pool``, ``vov_msda``, ``vov_conv3x3``,
+    ``vov_conv3x3_dgrad``.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -87,13 +105,16 @@ the flagship frame time and its per-stage and per-kernel device times, for
 the kernel-routed configuration and the default one, then the flagship
 train step's time and its device time by kernel; ``--profile-det`` the
 detection config's eval forward, decode and train step with K7;
+``--profile-vov`` the folded VoVNet-99 stream at 6 x 512x1408 (frame
+time, device time by stage and kernel, the depth net's convs one by one);
 ``--profile-default``
 the default configuration alone; ``--profile-occ`` the routed and blend
 streams, those that take K8 and K9 (copied beside an older tree's
 package, it profiles that package).  ``--k6-plans`` and ``--k7-plans`` time
 every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
 ``--config`` runs the config phase (10.) alone, ``--loop`` the loop
-phase (11.), ``--det`` the detection phase (12.).
+phase (11.), ``--det`` the detection phase (12.), ``--vov`` the backbones
+phase (13.).
 ``--k1`` builds the kernels, prints the ``-Xptxas -v`` lines of
 ``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
 plain versions at the flagship (K5 also bit for bit against K1's one-slot
@@ -258,30 +279,34 @@ def entry(name, src, replaces, err, tol, ms, plain_ms, b, library_ms):
                 library_ms=library_ms)
 
 
-def flagship_pool_inputs(dev):
-    """K2's flagship rig: its ranks (337,920 points), depth (1,6,80,16,44)
-    normalised over the bins, feat (1,6,16,44,80) f32, from seed 2."""
+def flagship_pool_inputs(dev, input_size=(256, 704)):
+    """K2's flagship rig at ``input_size``: its ranks (337,920 points at
+    256x704, 1,351,680 at 512x1408), depth (1,6,80,fH,fW) normalised over
+    the bins, feat (1,6,fH,fW,80) f32, from seed 2."""
     import torch
     from fbbev_tpu_torch import geometry, host_lib
     from fbbev_tpu_torch.models.lss import LSSViewTransformer3D
     from fbbev_tpu_torch.models.fbocc import DEFAULT_GRID_CONFIG
-    fp = LSSViewTransformer3D(DEFAULT_GRID_CONFIG, (256, 704), 16)
+    fp = LSSViewTransformer3D(DEFAULT_GRID_CONFIG, input_size, 16)
+    fH, fW = (s // 16 for s in input_size)
     coor = geometry.frustum_to_ego(torch.from_numpy(fp.frustum),
-                                   flagship_rig()).numpy().reshape(-1, 3)
+                                   flagship_rig(6, *input_size)
+                                   ).numpy().reshape(-1, 3)
     ranks = host_lib.compute_voxel_ranks(
         coor, np.zeros(len(coor), np.int32), fp.grid_lower,
         fp.grid_interval, fp.grid_size, 1)
     rng = np.random.RandomState(2)
-    d = rng.rand(1, 6, 80, 16, 44).astype(np.float32)
+    d = rng.rand(1, 6, 80, fH, fW).astype(np.float32)
     depth = torch.from_numpy(d / d.sum(2, keepdims=True)).to(dev)
-    feat = torch.from_numpy(rng.randn(1, 6, 16, 44, 80).astype(
+    feat = torch.from_numpy(rng.randn(1, 6, fH, fW, 80).astype(
         np.float32)).to(dev)
     return ranks, fp, depth, feat
 
 
-def check_k2(dev, sweep=False):
-    """K2 at the flagship rig: depth (1,6,80,16,44) f32, feat
-    (1,6,16,44,80) f32 and bf16, each within 1e-4 of the plain version
+def check_k2(dev, sweep=False, input_size=(256, 704), name="bev_pool"):
+    """K2 at the flagship rig (``input_size`` 256x704; 512x1408 for the
+    VoVNet-99 config, entry ``vov_bev_pool``): depth (1,6,80,fH,fW) f32,
+    feat (1,6,fH,fW,80) f32 and bf16, each within 1e-4 of the plain version
     (f32 sums in another order); timed per call, from a CUDA graph and in
     host microseconds per call, beside the output's ``torch.zeros`` and
     ``torch.empty`` alone.  The JSON entry is the bf16 run's, the serving
@@ -293,27 +318,28 @@ def check_k2(dev, sweep=False):
     timed."""
     import torch
     from fbbev_tpu_torch.ops import pallas_pool as K2
-    ranks, fp, depth, feat = flagship_pool_inputs(dev)
+    ranks, fp, depth, feat = flagship_pool_inputs(dev, input_size)
     grid = fp.grid_size
-    plan = K2.plan_pool(ranks, 1, 6, fp.D, 16, 44, grid).to(dev)
+    fH, fW = depth.shape[-2:]
+    plan = K2.plan_pool(ranks, 1, 6, fp.D, fH, fW, grid).to(dev)
     feats = {"f32": feat, "bf16": feat.to(torch.bfloat16)}
     wants = {name: K2.lss_voxel_pool_precomputed(plan.ranks, depth,
                                                  ft.float(), grid)
              for name, ft in feats.items()}
     times = {}
-    for name, ft in feats.items():
+    for kind, ft in feats.items():
         got = K2.lss_voxel_pool_planned(plan, depth, ft)
         torch.cuda.synchronize()
-        e = (got - wants[name]).abs().max().item()
+        e = (got - wants[kind]).abs().max().item()
         if not e <= 1e-4:
-            raise AssertionError(f"K2 {name}: {e} > 1e-4")
+            raise AssertionError(f"K2 {kind}: {e} > 1e-4")
         call = (lambda ft=ft: K2.lss_voxel_pool_planned(plan, depth, ft))
-        times[name] = (e, cuda_time(call, iters=50), graph_time(call,
+        times[kind] = (e, cuda_time(call, iters=50), graph_time(call,
                                                                 reps=20),
                        host_us(call))
-        log(f"K2 feat {name}: max_abs_err {e:.3e}, {times[name][1]:.4f} ms "
-            f"per call, {times[name][2]:.4f} ms from a graph, "
-            f"{times[name][3]:.1f} us host per call")
+        log(f"K2 {input_size} feat {kind}: max_abs_err {e:.3e}, "
+            f"{times[kind][1]:.4f} ms per call, {times[kind][2]:.4f} ms from "
+            f"a graph, {times[kind][3]:.1f} us host per call")
     out_elems = wants["f32"].numel()
     shape = (1, grid[1], grid[0], grid[2], 80)
     zeros_ms = graph_time(lambda: torch.zeros(shape, device=dev), reps=20)
@@ -345,22 +371,22 @@ def check_k2(dev, sweep=False):
     if sweep:
         for tr, tp in ((8, 32), (16, 32), (16, 64), (31, 64), (16, 128),
                        (31, 128)):
-            p = K2.plan_pool(ranks, 1, 6, fp.D, 16, 44, grid, rows=tr,
+            p = K2.plan_pool(ranks, 1, 6, fp.D, fH, fW, grid, rows=tr,
                              points=tp).to(dev)
             row = []
-            for name, ft in feats.items():
+            for kind, ft in feats.items():
                 e = (K2.lss_voxel_pool_planned(p, depth, ft)
-                     - wants[name]).abs().max().item()
+                     - wants[kind]).abs().max().item()
                 if not e <= 1e-4:
-                    raise AssertionError(f"K2 plan {tr}/{tp} {name}: {e}")
+                    raise AssertionError(f"K2 plan {tr}/{tp} {kind}: {e}")
                 t = graph_time(lambda ft=ft, p=p:
                                K2.lss_voxel_pool_planned(p, depth, ft),
                                reps=20)
-                row.append(f"{name} {t:.4f}")
+                row.append(f"{kind} {t:.4f}")
             log(f"K2 plan: tiles of {tr} rows / {tp} points "
                 f"({p.work.numel()} tiles, {p.n_long} long rows): ms from "
                 f"a graph {', '.join(row)}")
-    out = entry("bev_pool", "fbbev_tpu_torch/csrc/bev_pool.cu",
+    out = entry(name, "fbbev_tpu_torch/csrc/bev_pool.cu",
                 "fbbev_tpu/ops/pallas_pool.py:207", err, 1e-4, ms,
                 plain_ms, bound(moved["bf16"], f32_flops=2.0 * pv * 80),
                 library_ms)
@@ -396,8 +422,9 @@ def check_k3(dev, name, B, HW, hw, Q, P):
     log(f"{name} (B {B}, map {hw}, Q {Q}, P {P}): {ms:.4f} ms per call, "
         f"{gms:.4f} ms from a graph; plan {plan._asdict()}")
     out = entry(name, "fbbev_tpu_torch/csrc/msda.cu",
-                "fbbev_tpu/ops/pallas_sample.py:165" if name == "msda"
-                else "fbbev_tpu/ops/pallas_selfattn.py:198", err, 1e-4,
+                "fbbev_tpu/ops/pallas_selfattn.py:198"
+                if name == "msda_selfattn"
+                else "fbbev_tpu/ops/pallas_sample.py:165", err, 1e-4,
                 ms, plain_ms, bound(nbytes, f32_flops=got.numel() * P * 4
                                     * 2.0), None)
     out.update(graph_ms=gms)
@@ -1028,9 +1055,11 @@ def check_k7(dev, shapes=K7_SHAPES):
             dw = (new.to(dt).float() - ref).abs()
             wtol = 2.0 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
             ds = (nine - new).abs().max().item()
+            sums = (new - ref).abs().max().item() / ref.abs().max().item()
             log(f"K7 wgrad N={N} {H}x{W} {ci}->{co}: bf16 product vs f32 "
                 f"max_abs_err {dw.max().item():.3e}, within one bf16 "
-                f"rounding: {bool((dw <= wtol).all())}; nine products vs "
+                f"rounding: {bool((dw <= wtol).all())} (f32 results "
+                f"{sums:.3e} of the largest apart); nine products vs "
                 f"stacked {ds:.3e}")
             if not bool((dw <= wtol).all()):
                 raise AssertionError("K7 wgrad: bf16 product differs from "
@@ -2324,6 +2353,367 @@ def run_det(dev):
     return stream_counts, train_counts, head
 
 
+VOV = "fbocc-vov99_depth_16f_512x1408.py"
+VOV_SIZE = (512, 1408)
+VOV_FRAMES = 5
+VOV_TRAIN_STEPS = (2, 2)  # fresh-stream steps, then continuing steps
+# K7's launches in one forward pass of VoVNet-99 at 6 cameras x 512x1408
+# (the convs that pass its gate, Cin % 64 == 0): stem_2; stage 2's five
+# convs; the first conv of stage 3's, 4's and 5's first block and of
+# their other blocks (Cin the stage's output); stage 4's conv1-4 in its 9
+# blocks.  Stage 3's and 5's conv1-4 (Cin 160, 224) run on cuDNN, as the
+# JAX gate routes them.
+VOV_K7_SHAPES = [((6, 256, 704, 64, 64), 1), ((6, 128, 352, 128, 128), 5),
+                 ((6, 64, 176, 256, 160), 1), ((6, 64, 176, 512, 160), 2),
+                 ((6, 32, 88, 512, 192), 1), ((6, 32, 88, 768, 192), 8),
+                 ((6, 32, 88, 192, 192), 36), ((6, 16, 44, 768, 224), 1),
+                 ((6, 16, 44, 1024, 224), 2)]
+# the other image-trunk K7 convs at the 32x88 map: the FPN output conv,
+# the depth net's reduce conv and its three basic blocks
+VOV_TRUNK_SHAPES = [((6, 32, 88, 256, 256), 1), ((6, 32, 88, 256, 512), 1),
+                    ((6, 32, 88, 512, 512), 6)]
+# the z-slabs of the 16 stride-1 3x3x3 convs (the flagship's, unchanged)
+K7_ZSLAB_SHAPES = K7_SHAPES[6:]
+# the backbones built as FBOCC's at the flagship 256x704 and served
+OTHER_BACKBONES = (("ConvNeXt", "base"), ("SwinTransformer", "base"),
+                   ("DLANet", "dla34"))
+
+
+def vov_k7_prediction(model):
+    """K7's launches a train step of ``model`` (the VoVNet-99 config with
+    ``pallas3x3``), from its modules: each 2D K7 conv whose gate holds
+    (Cin % 64 == 0, Cout % 16 == 0; every map here is at least 16x44)
+    once forward and once in dgrad, each z-slab conv three times each, the
+    OSA blocks' K7 convs again in the recomputation of the checkpointed
+    blocks (stem_2 is outside them).  Checked against the shapes tables.
+    Returns (forward, dgrad) launches a step."""
+    from fbbev_tpu_torch.models.layers import Conv3dZSlabK7, Conv3x3K7
+
+    def gated(mods):
+        return sum(isinstance(m, Conv3x3K7) and m.in_channels % 64 == 0
+                   and m.out_channels % 16 == 0 for m in mods)
+
+    n2d = gated(model.modules())
+    n3d = sum(type(m) is Conv3dZSlabK7 for m in model.modules())
+    bb = model.img_backbone
+    nrem = gated(m for n in range(2, 6)
+                 for m in getattr(bb, f"stage{n}").modules())
+    per_pass = n2d + 3 * n3d
+    by_shapes = sum(c for _, c in VOV_K7_SHAPES + VOV_TRUNK_SHAPES
+                    + K7_ZSLAB_SHAPES)
+    n_vov = sum(c for _, c in VOV_K7_SHAPES)
+    if (per_pass, nrem, gated(bb.modules())) != (by_shapes, n_vov - 1,
+                                                 n_vov):
+        raise AssertionError(
+            f"K7 convs: {per_pass} a pass, {nrem} recomputed, "
+            f"{gated(bb.modules())} in the VoVNet; the shapes tables give "
+            f"{by_shapes}, {n_vov - 1}, {n_vov}")
+    return per_pass + nrem, per_pass
+
+
+def run_vov(dev):
+    """The FB-OCC large variant (``fbocc-vov99_depth_16f_512x1408.py``:
+    VoVNet-99 at 6 x 512x1408, a 32x88 feature map, bf16, ``remat``) and
+    the other backbones, through the entry points a user calls.
+
+    1. The config through ``train.loop.build_model`` in float32 with a
+       seeded generator, its BatchNorms perturbed, folded (a copy
+       unfolded): 5 frames each through ``FixedRigPipeline`` on
+       ``flagship_rig(N=6, H=512, W=1408)`` (a sequence start, then small
+       ego motion) in float32 (K1's f32 kernel) and again both cast to
+       bf16: folded and unfolded labels agree on >= 99.9% of voxels in
+       float32; in bf16 the folded labels agree with the float32 ones
+       within 0.01 of the unfolded bf16 labels' agreement with them;
+       finite logits, exactly K1 1, K2 1, K3 2 a frame.
+    2. ``FixedRigPipeline.benchmark(iters=20)`` on the folded model, and
+       its peak device memory.
+    3. K2 (1,351,680 frustum points) and K3 (six 32x88 maps: the
+       global-row plan, printed) against their plain versions at these
+       shapes (entries ``vov_bev_pool``, ``vov_msda``).
+    4. 2 + 2 train steps with K7 (``pallas3x3``; each OSA block
+       checkpointed): finite losses, a non-zero gradient in every OSA
+       block and every other top-level module, K7's forward and dgrad
+       launches exactly as :func:`vov_k7_prediction` predicts; ms per
+       step and peak memory.  K7 against its plain version at each
+       VoVNet shape (``check_k7(dev, VOV_K7_SHAPES)``: entries
+       ``vov_conv3x3``, ``vov_conv3x3_dgrad``).
+    5. ConvNeXt-base, Swin-base and DLA-34 as FBOCC's backbone at the
+       flagship 256x704 (bf16, random weights): 2 frames each through
+       ``FixedRigPipeline``, exact K1-K4 launches, finite logits, and the
+       steady frame time.
+    6. A small V-19-eSE config (the tiny config: 2 cameras at 64x176,
+       25x25x8, float32) on the card and on the CPU: labels agree on >=
+       95% of voxels, K1's f32 kernel, K2 and K3 each frame.
+
+    Returns (stream counts, train counts, [K2, K3 entries], K7 entries)."""
+    import copy
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.models import FBOCC
+    from fbbev_tpu_torch.models.fbocc import init_temporal_state
+    from fbbev_tpu_torch.ops import pallas_conv as K7
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.train import Trainer
+    from fbbev_tpu_torch.train.loop import build_model
+    from fbbev_tpu_torch.utils.fuse_bn import fold_batch_norms, \
+        perturb_batch_norms
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    bf16 = torch.bfloat16
+    cfg = Config.fromfile(os.path.join(CONFIGS, VOV))
+    H, W = VOV_SIZE
+    cam = flagship_rig(N=6, H=H, W=W)
+
+    # 1. folded and unfolded streams
+    t0 = time.perf_counter()
+    unfolded = build_model(cfg, device=dev, dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0))
+    if type(unfolded.img_backbone).__name__ != "VoVNetCP" or \
+            unfolded.backbone_arch != "V-99-eSE" or \
+            tuple(unfolded.input_size) != VOV_SIZE:
+        raise AssertionError("the vov99 config built another model")
+    perturb_batch_norms(unfolded, torch.Generator().manual_seed(3))
+    folded = copy.deepcopy(unfolded)
+    pairs = fold_batch_norms(folded)
+    n_params = sum(p.numel() for p in folded.parameters())
+    n_bb = sum(p.numel() for p in folded.img_backbone.parameters())
+    log(f"vov: {VOV} built ({n_params} parameters, {n_bb} of them the "
+        f"VoVNet's), BatchNorms perturbed, {len(pairs)} conv/BN pairs "
+        f"folded in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(1)
+    imgs = [torch.randn(1, 6, H, W, 3, generator=g).to(dev)
+            for _ in range(VOV_FRAMES)]
+    labels, stream_counts = {}, None
+    # each model in float32 (K1's f32 kernel), then both cast to bf16
+    for dt, per_frame in ((torch.float32, "f32"), (bf16, "default")):
+        for label, model in (("folded", folded), ("unfolded", unfolded)):
+            label = f"{label} {str(dt)[6:]}"
+            pipe = FixedRigPipeline(model.cast(dt), cam)
+            if label == "folded float32":
+                pts = int((pipe.ranks < np.prod(pipe.grid)).sum())
+                log(f"vov: the rig's {pipe.ranks.size} frustum points, "
+                    f"{pts} in the grid; K2 plan: "
+                    f"{pipe.pool_plan.work.numel()} tiles, "
+                    f"{pipe.pool_plan.n_long} long rows")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels[label], counts = config_stream(pipe, imgs,
+                                                  f"vov {label} stream")
+            log(f"vov: {label} stream of {VOV_FRAMES} frames in "
+                f"{time.perf_counter() - t0:.2f} s")
+            expect_counts(f"vov {label}", counts, VOV_FRAMES,
+                          PER_FRAME[per_frame])
+            if label == "folded bfloat16":
+                folded_pipe, stream_counts = pipe, counts
+            if tuple(labels[label][0].shape) != (1, 200, 200, 16):
+                raise AssertionError(
+                    f"labels {tuple(labels[label][0].shape)}")
+
+    def agreement(a, b):
+        return [float((x == y).float().mean())
+                for x, y in zip(labels[a], labels[b])]
+
+    fold32 = agreement("folded float32", "unfolded float32")
+    fold16 = agreement("folded bfloat16", "unfolded float32")
+    floor16 = agreement("unfolded bfloat16", "unfolded float32")
+    for what, a in (("folded vs unfolded, float32", fold32),
+                    ("folded vs unfolded, bf16",
+                     agreement("folded bfloat16", "unfolded bfloat16")),
+                    ("folded bf16 vs unfolded float32", fold16),
+                    ("unfolded bf16 vs unfolded float32", floor16)):
+        log(f"vov: label agreement {what} per frame "
+            f"{[round(x, 5) for x in a]}, min {min(a):.5f}")
+    # the fold is exact up to float32 rounding; in bf16 (99 layers of its
+    # rounding on random weights) the folded model must stand as close to
+    # the float32 labels as the unfolded one does: the two bf16 models'
+    # own disagreement is the sum of their roundings' and not a measure
+    if min(fold32) < 0.999 or min(fold16) < min(floor16) - 0.01:
+        raise AssertionError(f"folded and unfolded disagree: float32 "
+                             f"{fold32}; against the float32 labels: bf16 "
+                             f"folded {fold16}, unfolded {floor16}")
+    del unfolded, pipe
+    torch.cuda.empty_cache()
+
+    # 2. the benchmark, and its peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fps = folded_pipe.benchmark(iters=20)
+    peak_serve = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"vov: FixedRigPipeline.benchmark(iters=20), folded bf16 "
+        f"VoVNet-99 6x512x1408: {fps:.4f} frames/s, {1e3 / fps:.4f} ms per "
+        f"frame, peak device memory {peak_serve:.2f} GiB ({card})")
+    del folded_pipe, folded
+    torch.cuda.empty_cache()
+
+    # 3. K2 and K3 at this config's shapes
+    kernels = [check_k2(dev, input_size=VOV_SIZE, name="vov_bev_pool"),
+               check_k3(dev, "vov_msda", 6, 32 * 88, (32, 88), 4096, 8)]
+
+    # 4. train steps with K7
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, pallas3x3=True,
+                        generator=torch.Generator().manual_seed(0))
+    if not (model.remat and model.img_backbone.remat):
+        raise AssertionError("the vov99 config trains without remat")
+    k7_step = vov_k7_prediction(model)
+    log(f"vov train: K7 per step expected forward {k7_step[0]}, dgrad "
+        f"{k7_step[1]}")
+    trainer = Trainer(model)
+    s0 = trainer.init_state()
+    fp = model.forward_projection
+    tstate = init_temporal_state(1, fp.grid_size, model.history_cat_num,
+                                 model.single_bev_num_channels,
+                                 dtype=model.dtype, device=dev)
+    g = torch.Generator().manual_seed(9)
+    n_fresh, n_cont = VOV_TRAIN_STEPS
+    batches = [train_batch(dev, g, model, cam, i < n_fresh, i)
+               for i in range(n_fresh + n_cont)]
+    log(f"vov train: model, trainer and {len(batches)} batches built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    K7.launches = K7.dgrad_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, ms = s0, []
+    for i, batch in enumerate(batches):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        state, tstate, met = trainer.train_step(state, tstate, batch,
+                                                do_history=i >= n_fresh)
+        e[1].record()
+        torch.cuda.synchronize()
+        ms.append(e[0].elapsed_time(e[1]))
+        met = {k: float(v) for k, v in met.items()}
+        log(f"vov train step {i} (do_history={i >= n_fresh}): "
+            f"{ms[-1]:.1f} ms " + " ".join(f"{k}={v:.4f}"
+                                           for k, v in met.items()))
+        if not all(np.isfinite(v) for v in met.values()):
+            raise AssertionError(f"non-finite metrics: {met}")
+        if met["seq_mismatch"] != 0:
+            raise AssertionError("sequence mismatch in a continuing step")
+        if i == 0:
+            # Adam's first moment is 0.1 * the clipped gradient: every OSA
+            # block, the stem and every other top-level module got one
+            mu = trainer.unflatten(state.opt_state.mu)
+            parts = sorted({n.split(".")[0] for n in mu
+                            if not n.startswith("img_backbone.")}
+                           | {".".join(n.split(".")[:3])
+                              for n in mu if n.startswith(
+                                  "img_backbone.stage")}
+                           | {"img_backbone.stem"})
+            norms = {p: float(torch.sqrt(sum(
+                (v.float() ** 2).sum() for n, v in mu.items()
+                if n == p or n.startswith(p + ".")))) for p in parts}
+            bad = {p: v for p, v in norms.items()
+                   if not (np.isfinite(v) and v > 0)}
+            osa = [v for p, v in norms.items() if ".OSA" in p]
+            log(f"  gradient (Adam mu) norm over {len(osa)} OSA blocks "
+                f"{min(osa):.4e} .. {max(osa):.4e}; "
+                + ", ".join(f"{p} {v:.4e}" for p, v in norms.items()
+                            if ".OSA" not in p))
+            if bad or len(osa) != 16:
+                raise AssertionError(f"no gradient reaches {bad} "
+                                     f"({len(osa)} OSA blocks)")
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_counts = dict(conv3x3=K7.launches,
+                        conv3x3_dgrad=K7.dgrad_launches, **read_counts())
+    log(f"vov train: launches {train_counts}")
+    steps = len(batches)
+    want = (steps * k7_step[0], steps * k7_step[1])
+    got = (train_counts["conv3x3"], train_counts["conv3x3_dgrad"])
+    if got != want:
+        raise AssertionError(f"K7 launches (forward, dgrad) {got}, "
+                             f"expected {want}")
+    if any(read_counts().values()):
+        raise AssertionError(f"training launched a kernel without a "
+                             f"backward: {train_counts}")
+    step_ms = float(np.median(ms[1:]))
+    log(f"vov train step: {step_ms:.1f} ms per step (median of steps "
+        f"2..{steps}, CUDA events; first step {ms[0]:.1f} ms), peak device "
+        f"memory {peak_train:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.1f}"
+        f" ({card})")
+    del batches, trainer, model, state, s0, tstate
+    torch.cuda.empty_cache()
+    k7 = check_k7(dev, VOV_K7_SHAPES)
+    for k in k7:
+        k["name"] = "vov_" + k["name"]
+
+    # 5. the other backbones at the flagship size
+    g = torch.Generator().manual_seed(1)
+    small_imgs = [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
+                  for _ in range(2)]
+    for btype, arch in OTHER_BACKBONES:
+        t0 = time.perf_counter()
+        model = FBOCC(backbone_type=btype, backbone_arch=arch, dtype=bf16,
+                      device=dev, generator=torch.Generator().manual_seed(0))
+        pipe = FixedRigPipeline(model, flagship_rig())
+        _, counts = config_stream(pipe, small_imgs, f"{btype} {arch}")
+        expect_counts(f"{btype} {arch}", counts, 2, PER_FRAME["default"])
+        frame_ms = cuda_time(lambda: pipe(small_imgs[1], False, flow(1)),
+                             iters=5, warmup=1)
+        log(f"vov: {btype} {arch} backbone "
+            f"({sum(p.numel() for p in model.img_backbone.parameters())} "
+            f"parameters) served 2 frames at 6x256x704, steady frame "
+            f"{frame_ms:.2f} ms (CUDA events, mean of 5; built and run in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        del model, pipe
+        torch.cuda.empty_cache()
+
+    # 6. the V-19-eSE tiny config on the card and on the CPU
+    tiny = Config.fromfile(os.path.join(CONFIGS,
+                                        "fbocc-r50-tiny_synthetic.py"))
+    tiny.merge_from_options({"model.backbone_type": "VoVNetCP",
+                             "model.backbone_arch": "V-19-eSE"})
+    out = {}
+    for d in ("cpu", dev):
+        m = build_model(tiny, device=d,
+                        generator=torch.Generator().manual_seed(5))
+        pipe = FixedRigPipeline(m, flagship_rig(N=2, H=64, W=176))
+        g = torch.Generator().manual_seed(6)
+        frames = [torch.randn(1, 2, 64, 176, 3, generator=g)
+                  for _ in range(3)]
+        if d == "cpu":
+            out[d] = [pipe(f, i == 0, flow(0 if i == 0 else 1))
+                      for i, f in enumerate(frames)]
+        else:
+            out[d], counts = config_stream(pipe, frames,
+                                           "vov tiny V-19-eSE (float32)")
+            expect_counts("vov tiny", counts, 3, PER_FRAME["f32"])
+    agree = min(float((x == y).float().mean())
+                for x, y in zip(out["cpu"], out[dev]))
+    log(f"vov: tiny V-19-eSE config (float32), card vs CPU plain versions: "
+        f"label agreement {agree:.5f} (min over 3 frames)")
+    if agree < 0.95:
+        raise AssertionError(f"tiny V-19 config: card and CPU disagree: "
+                             f"{agree}")
+    log(f"vov phase: {time.perf_counter() - t_phase:.1f} s")
+    return stream_counts, train_counts, kernels, k7
+
+
+def profile_vov(dev, frames=5):
+    """``--profile-vov``: the folded bf16 VoVNet-99 stream at 6 x 512x1408
+    timed and profiled as :func:`profile` does the flagship's (frame time,
+    device time by stage and by kernel, idle share), then its depth net's
+    convolutions one by one at the 32x88 map (the ASPP's among them)."""
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.utils.fuse_bn import build_folded
+    cfg = Config.fromfile(os.path.join(CONFIGS, VOV))
+    model = build_folded(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    H, W = VOV_SIZE
+    pipe = FixedRigPipeline(model, flagship_rig(N=6, H=H, W=W))
+    g = torch.Generator().manual_seed(1)
+    imgs = [torch.randn(1, 6, H, W, 3, generator=g).to(dev)
+            for _ in range(3)]
+    pipe(imgs[0], True)
+    profile_frames(pipe, imgs, frames, PORT_KERNELS,
+                   "vov99 6x512x1408 folded bf16 cudnn.benchmark=False")
+    depth_net_convs(pipe, imgs[1], dev)
+
+
 def k1_captured(run):
     """``run()`` with K1's wrapper recording its inputs: (run's result,
     (args, kwargs) of K1's last call)."""
@@ -2391,7 +2781,7 @@ def profile_frames(pipe, imgs, frames, ours, label):
     import torch
     from torch.profiler import ProfilerActivity
     ms = cuda_time(lambda: pipe(imgs[1], False, flow(1)), iters=20)
-    log(f"{label}: flagship steady frame {ms:.3f} ms (CUDA events, mean "
+    log(f"{label}: steady frame {ms:.3f} ms (CUDA events, mean "
         f"of 20)")
     with torch.profiler.profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2499,7 +2889,15 @@ def profile(dev, frames=5):
             del pipe, model
             torch.cuda.empty_cache()
     torch.backends.cudnn.benchmark = False
-    # the depth net's convolutions one by one, at their frame inputs
+    depth_net_convs(pipe, imgs[1], dev)
+
+
+def depth_net_convs(pipe, img, dev, top=6):
+    """The depth net's convolutions of ``pipe``'s model one by one at their
+    inputs of the frame ``img`` (CUDA events, mean of 5): the ``top``
+    slowest (the ASPP's dilated convs first)."""
+    import torch
+    model = pipe.model
     shapes = {}
 
     def record(m, inputs, output):
@@ -2508,7 +2906,7 @@ def profile(dev, frames=5):
     hooks = [m.register_forward_hook(record)
              for m in model.depth_net.modules()
              if isinstance(m, torch.nn.Conv2d)]
-    pipe(imgs[1], False, flow(1))
+    pipe(img, False, flow(1))
     for h in hooks:
         h.remove()
     rows = []
@@ -2518,9 +2916,11 @@ def profile(dev, frames=5):
             x = torch.empty_strided(shape, stride, device=dev,
                                     dtype=torch.bfloat16).normal_()
             with torch.no_grad():
-                rows.append((cuda_time(lambda: m(x), iters=5), name, m))
-    for ms, name, m in sorted(rows, key=lambda r: r[0], reverse=True)[:6]:
-        log(f"  depth_net conv {ms:8.3f} ms  {name}: {m}")
+                rows.append((cuda_time(lambda: m(x), iters=5), name, m,
+                             tuple(shape)))
+    for ms, name, m, shape in sorted(rows, key=lambda r: r[0],
+                                     reverse=True)[:top]:
+        log(f"  depth_net conv {ms:8.3f} ms  {name} on {shape}: {m}")
 
 
 def profile_train(dev, steps=3):
@@ -2763,6 +3163,9 @@ def main():
     if "--profile-occ" in sys.argv[1:]:
         profile_occ(dev)
         return 0
+    if "--profile-vov" in sys.argv[1:]:
+        profile_vov(dev)
+        return 0
     if "--k1" in sys.argv[1:]:
         # K1 (both variants) and K5 alone, for iterating on them: their
         # ptxas lines, then K5's plan sweep
@@ -2802,6 +3205,11 @@ def main():
         # the detection path alone (run_det)
         run_det(dev)
         log(f"chip_smoke --det: {time.perf_counter() - T0:.1f} s")
+        return 0
+    if "--vov" in sys.argv[1:]:
+        # the VoVNet-99 config and the other backbones alone (run_vov)
+        run_vov(dev)
+        log(f"chip_smoke --vov: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--config" in sys.argv[1:]:
         # the config-built entry alone (run_config)
@@ -2860,12 +3268,20 @@ def main():
         k.update({f"det_head_{key}": h[key] for key in (
             "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
             "library_ms", "library_graph_ms")})
+    vov_stream, vov_train, vov_kernels, vov_k7 = run_vov(dev)
+    for k in kernels:
+        k["vov_launches"] = vov_stream[k["name"]]
+    for k in vov_kernels:
+        k["launches"] = vov_stream[k["name"][len("vov_"):]]
+    for k in vov_k7:
+        k["launches"] = vov_train[k["name"][len("vov_"):]]
     kernels[3].update(t1_ms=k1_t1["ms"], t1_graph_ms=k1_t1["graph_ms"],
                       t1_plain_ms=k1_t1["plain_ms"],
                       t1_bound_ms=k1_t1["bound_ms"],
                       t1_max_abs_err=k1_t1["max_abs_err"])
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
-    log(json.dumps({"kernels": kernels + [k1_f32] + k7 + routed + [k10]}))
+    log(json.dumps({"kernels": kernels + [k1_f32] + k7 + routed + [k10]
+                    + vov_kernels + vov_k7}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -112,14 +112,12 @@ def detector_kwargs(model_cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The ``FBOCC`` arguments of a model config of either schema, dtype
     strings as torch dtypes, sequences as tuples.  Of the JAX model's
     keys, ``use_tiled_warp`` (its fused eval warp) becomes ``fuse_warp``;
-    ``readd`` (which JAX's forward never reads) and ``backbone_arch`` (the
-    M12 backbones') are dropped."""
+    ``readd`` (which JAX's forward never reads) is dropped."""
     cfg = dict(model_cfg)
     cfg.pop("type", None)
     nested = any(isinstance(v, dict) and "type" in v for v in cfg.values())
     kwargs = translate_reference_model_cfg(cfg) if nested else cfg
     kwargs.pop("readd", None)
-    kwargs.pop("backbone_arch", None)
     if "use_tiled_warp" in kwargs:
         kwargs["fuse_warp"] = kwargs.pop("use_tiled_warp")
     if isinstance(kwargs.get("dtype"), str):

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from fbbev_tpu_torch import geometry
+from fbbev_tpu_torch.models import convnext, dla, resnet, swin, vovnet
 from fbbev_tpu_torch.models.bevformer import BackwardProjection
 from fbbev_tpu_torch.models.centerpoint_head import CenterHead, SeparateHead
 from fbbev_tpu_torch.models.depth_net import CM_DepthNet, get_mlp_input
@@ -36,8 +37,6 @@ from fbbev_tpu_torch.models.fpn3d import FPN3D
 from fbbev_tpu_torch.models.layers import RingCatConvBN, TimeEmbedConvBN
 from fbbev_tpu_torch.models.lss import LSSViewTransformer3D
 from fbbev_tpu_torch.models.occ_head import OccHead
-from fbbev_tpu_torch.models.resnet import ResNet
-from fbbev_tpu_torch.models.resnet import out_channels as resnet_out_channels
 from fbbev_tpu_torch.models.resnet3d import CustomResNet3D
 from fbbev_tpu_torch.ops import pallas_fuse_warp, pallas_warp
 from fbbev_tpu_torch.registry import DETECTORS
@@ -79,6 +78,32 @@ def init_temporal_state(batch: int, grid_size: Tuple[int, int, int],
         forward_augs=torch.eye(4, device=device).repeat(batch, 1, 1))
 
 
+def build_backbone(backbone_type: str, depth: int, arch: str,
+                   pallas3x3: bool = False, remat: bool = False):
+    """(image backbone, the neck's input channels) of an FBOCC config, as
+    JAX ``fbocc.py:190-227``: the outputs at strides 16 and 32 -- ResNet's
+    C4 / C5, VoVNet's stages 4 / 5, ConvNeXt's and Swin's stages 2 / 3,
+    DLA's levels 4 / 5.  ``pallas3x3`` reaches the backbones with 3x3
+    stride-1 convs, ``remat`` ResNet and VoVNet only."""
+    if backbone_type == "ResNet":
+        return (resnet.ResNet(pallas3x3, remat, depth),
+                resnet.out_channels(depth))
+    if backbone_type == "VoVNetCP":
+        ch = vovnet.STAGE_SPECS[arch]["stage_out_ch"]
+        return (vovnet.VoVNetCP(arch, (2, 3), pallas3x3, remat),
+                (ch[2], ch[3]))
+    if backbone_type == "ConvNeXt":
+        dims = convnext.SPECS[arch]["dims"]
+        return convnext.ConvNeXt(arch, (2, 3)), (dims[2], dims[3])
+    if backbone_type == "SwinTransformer":
+        e = swin.SPECS[arch]["embed"]
+        return swin.SwinTransformer(arch, out_indices=(2, 3)), (4 * e, 8 * e)
+    if backbone_type == "DLANet":
+        ch = dla.SPECS[arch]["channels"]
+        return dla.DLANet(arch, (4, 5), pallas3x3), (ch[4], ch[5])
+    raise KeyError(backbone_type)
+
+
 def make_backward_projection(model: "FBOCC") -> BackwardProjection:
     """The BackwardProjection head of an FBOCC config."""
     fp = model.forward_projection
@@ -101,7 +126,10 @@ class FBOCC(nn.Module):
     stored as attributes of the same names:
 
     * ``backbone_type`` ``"ResNet"`` of ``backbone_depth`` 10, 18, 34, 50
-      or 101 (the other backbones are ROADMAP M12 and raise);
+      or 101, or ``"VoVNetCP"``, ``"ConvNeXt"``, ``"SwinTransformer"`` or
+      ``"DLANet"`` of ``backbone_arch`` (a ``STAGE_SPECS`` / ``SPECS`` key
+      of its module: ``"V-99-eSE"`` is the large variant's), with the neck
+      inputs of JAX ``fbocc.py:190-227`` (:func:`build_backbone`);
     * ``use_backward_projection`` off: no BEVFormer head, the LSS voxels
       go straight to the history fusion; ``use_occupancy_head`` off: no
       head and no ``occ_logits``; ``use_detection_head`` on (FB-BEV,
@@ -111,17 +139,18 @@ class FBOCC(nn.Module):
     * ``pc_range`` reaches the backward projection (its anchors span it
       when it has no grid of its own);
     * ``use_depth_supervision`` is the ``Trainer``'s default.  The JAX
-      config keys ``readd``, ``backbone_arch`` and ``use_tiled_warp`` are
-      taken by :func:`~fbbev_tpu_torch.models.builder.detector_kwargs`:
-      JAX's forward never reads ``readd``, ``backbone_arch`` names the
-      backbones of M12, and ``use_tiled_warp`` is ``fuse_warp`` here.
+      config keys ``readd`` and ``use_tiled_warp`` are taken by
+      :func:`~fbbev_tpu_torch.models.builder.detector_kwargs`: JAX's
+      forward never reads ``readd``, and ``use_tiled_warp`` is
+      ``fuse_warp`` here.
 
     ``pallas3x3`` routes the 3x3 stride-1 convolutions to K7 as the JAX
     configuration ``FBBEV_PALLAS3X3=1`` does (default off, as there): the
     image trunk's 2D ones directly, the 3D encoder's, FPN3D's and the occ
     head's 3x3x3 ones through the z-slab decomposition;
-    ``remat`` checkpoints each ResNet stage in training (the config's
-    ``remat=True``).
+    ``remat`` checkpoints each ResNet stage or VoVNet OSA block in training
+    (the config's ``remat=True``; the JAX package remats those two
+    backbones only).
 
     The JAX package's opt-in eval routes, each named after its switch and
     taken exactly where the JAX gate holds (train mode is unchanged):
@@ -137,6 +166,7 @@ class FBOCC(nn.Module):
                  input_size: Tuple[int, int] = (256, 704),
                  downsample: int = 16, num_cams: int = 6,
                  backbone_type: str = "ResNet", backbone_depth: int = 50,
+                 backbone_arch: str = "V-99-eSE",
                  img_feat_channels: int = 256,
                  single_bev_num_channels: int = 80, depth_channels: int = 80,
                  depth_mid_channels: int = 512, history_cat_num: int = 16,
@@ -157,10 +187,6 @@ class FBOCC(nn.Module):
                  coarse_pred: bool = True, pallas_conv3d: bool = False,
                  fuse_warp: bool = True):
         super().__init__()
-        if backbone_type != "ResNet":
-            raise NotImplementedError(
-                f"backbone_type {backbone_type!r}: the port has the ResNet "
-                f"backbone only; the others are ROADMAP M12")
         self.grid_config = dict(grid_config or DEFAULT_GRID_CONFIG)
         self.bevformer_grid_config = dict(
             bevformer_grid_config or DEFAULT_BEVFORMER_GRID)
@@ -169,6 +195,7 @@ class FBOCC(nn.Module):
         self.num_cams = num_cams
         self.backbone_type = backbone_type
         self.backbone_depth = backbone_depth
+        self.backbone_arch = backbone_arch
         self.img_feat_channels = img_feat_channels
         self.single_bev_num_channels = C = single_bev_num_channels
         self.depth_channels = depth_channels
@@ -190,9 +217,9 @@ class FBOCC(nn.Module):
         self.forward_projection = LSSViewTransformer3D(
             self.grid_config, self.input_size, downsample)
 
-        self.img_backbone = ResNet(pallas3x3, remat, backbone_depth)
-        self.img_neck = CustomFPN(resnet_out_channels(backbone_depth),
-                                  img_feat_channels, pallas3x3)
+        self.img_backbone, neck_in = build_backbone(
+            backbone_type, backbone_depth, backbone_arch, pallas3x3, remat)
+        self.img_neck = CustomFPN(neck_in, img_feat_channels, pallas3x3)
         self.depth_net = CM_DepthNet(img_feat_channels, depth_mid_channels,
                                      C, depth_channels, pallas3x3)
         self.backward_projection = (make_backward_projection(self)
@@ -222,11 +249,18 @@ class FBOCC(nn.Module):
 
     def cast(self, dtype: torch.dtype) -> "FBOCC":
         """Computes in ``dtype`` from now on: every parameter and buffer
-        cast to it, except the depth net's float32 islands."""
+        cast to it, except the float32 islands of the depth net and of the
+        image backbone (modules, or single parameters)."""
         self.dtype = dtype
         self.to(dtype=dtype)
-        for m in self.depth_net.float32_islands():
-            m.float()
+        islands = list(self.depth_net.float32_islands())
+        if hasattr(self.img_backbone, "float32_islands"):
+            islands += self.img_backbone.float32_islands()
+        for m in islands:
+            if isinstance(m, nn.Parameter):
+                m.data = m.data.float()
+            else:
+                m.float()
         return self
 
     # ------------------------------------------------------------------
@@ -237,7 +271,9 @@ class FBOCC(nn.Module):
         if self.pallas3x3:
             # K7 reads channels-last memory: keep the trunk in it
             x = x.contiguous(memory_format=torch.channels_last)
-        x = self.img_neck(self.img_backbone(x))
+        # a ConvNeXt's or Swin's outputs are float32 (LayerNorm-ed), cast
+        # to the model's type as JAX's neck convs cast their inputs
+        x = self.img_neck([f.to(self.dtype) for f in self.img_backbone(x)])
         return x.permute(0, 2, 3, 1).reshape(B, N, *x.shape[2:], x.shape[1])
 
     # ------------------------------------------------------------------
@@ -432,9 +468,11 @@ class FBOCC(nn.Module):
 def init_weights(model: nn.Module, generator: Optional[torch.Generator]):
     """Random weights from ``generator``: LeCun-normal conv/linear kernels
     (the JAX package's default), zero biases (the detection heatmaps'
-    -2.19), identity BatchNorm, unit normal embeddings.  The
-    sampling-offset and attention-weight layers keep their directional /
-    zero init."""
+    -2.19), identity BatchNorm and LayerNorm, unit normal embeddings, and
+    as the JAX backbones initialise them ConvNeXt's layer scales at 1e-6
+    and Swin's relative-position bias tables truncated normal (0.02, cut
+    at 2 standard deviations).  The sampling-offset and attention-weight
+    layers keep their directional / zero init."""
     g = generator or torch.Generator().manual_seed(0)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -448,10 +486,20 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator]):
                 w.copy_(torch.randn(w.shape, generator=g) / fan_in ** 0.5)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            elif isinstance(m, (nn.modules.batchnorm._BatchNorm,
+                                nn.LayerNorm)):
                 m.reset_parameters()
             elif isinstance(m, nn.Embedding):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=g))
+            elif isinstance(m, convnext.ConvNeXtBlock):
+                m.gamma.fill_(convnext.LAYER_SCALE_INIT)
+            elif isinstance(m, swin.WindowMSA):
+                t = m.relative_position_bias_table
+                v = torch.randn(t.shape, generator=g)
+                while bool((v.abs() > 2).any()):
+                    out = v.abs() > 2
+                    v[out] = torch.randn(int(out.sum()), generator=g)
+                t.copy_(0.02 * v)
         # after the loop: it zeroed the biases the heads set
         for m in model.modules():
             if isinstance(m, SeparateHead):

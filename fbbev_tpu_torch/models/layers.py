@@ -327,6 +327,44 @@ def max_pool_same(x, window: int, strides: int):
     return F.max_pool2d(x, window, strides, (window - 1) // 2)
 
 
+def max_pool_ceil(x, window: int, strides: int):
+    """``MaxPool2d(window, strides, ceil_mode=True)`` with padding 0 (the
+    VoVNet inter-stage pools): the JAX package's ``max_pool_ceil``
+    (``layers.py:484``), which pads only right and bottom, with -inf,
+    exactly enough for the ceil-division output size."""
+    return F.max_pool2d(x, window, strides, 0, ceil_mode=True)
+
+
+def same_pad(x, k: int, s: int):
+    """x (B, C, H, W) zero-padded as flax's ``SAME`` pads a ``k`` x ``k``
+    stride-``s`` conv: ``ceil(n / s)`` outputs, the total padding split
+    low ``total // 2``, high the rest (the patchify convs of ConvNeXt and
+    Swin, whose JAX convs take flax's default padding)."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+def cast_in(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` with x cast to ``m``'s weight type, as a flax layer built
+    with ``dtype`` casts its input (a float32 LayerNorm output entering a
+    bf16 model's dense layer)."""
+    return m(x.to(m.weight.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis computed in float32 with a
+    float32 result, as flax's ``nn.LayerNorm`` without a ``dtype``
+    computes and returns on float32 parameters; its parameters are kept in
+    float32 under a bf16 model (:meth:`FBOCC.cast`)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(), self.eps)
+
+
 def upsample_nearest(x, out_hw: Tuple[int, int]):
     """Nearest resize of NCHW ``x``.  ``jax.image.resize('nearest')``
     samples half-pixel centres, which is PyTorch's ``nearest-exact``

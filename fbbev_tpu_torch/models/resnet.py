@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from fbbev_tpu_torch.models.layers import BasicBlock, Bottleneck, bn, \
     checkpoint_stage, conv, max_pool_same
+from fbbev_tpu_torch.registry import BACKBONES
 
 # depth -> (bottleneck blocks?, blocks per stage)
 STAGE_BLOCKS = {10: (False, (1, 1, 1, 1)), 18: (False, (2, 2, 2, 2)),
@@ -27,6 +28,7 @@ def out_channels(depth: int):
     return (1024, 2048) if STAGE_BLOCKS[depth][0] else (256, 512)
 
 
+@BACKBONES.register
 class ResNet(nn.Module):
     def __init__(self, pallas3x3: bool = False, remat: bool = False,
                  depth: int = 50):

@@ -1,8 +1,8 @@
-"""Trilinear grid sampling, channels-last, as gathers.  Counterpart of
-``fbbev_tpu/ops/grid_sample.py::grid_sample_3d`` (:173), the exact
-formulation the JAX package trains with: the eight corners gathered and
-weighted, zero outside the volume (``padding_mode='zeros'``), weights in
-float32."""
+"""Bilinear and trilinear grid sampling, channels-last, as gathers.
+Counterpart of ``fbbev_tpu/ops/grid_sample.py::grid_sample_2d`` (:40) and
+``grid_sample_3d`` (:173), the exact formulations of the JAX package: the
+four or eight corners gathered and weighted, zero outside the image or
+volume (``padding_mode='zeros'``); autograd gives the backward."""
 
 from __future__ import annotations
 
@@ -15,6 +15,29 @@ def _unnormalize(coord: torch.Tensor, size: int,
     if align_corners:
         return (coord + 1.0) / 2.0 * (size - 1)
     return ((coord + 1.0) * size - 1.0) / 2.0
+
+
+def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor,
+                   align_corners: bool = False) -> torch.Tensor:
+    """img (B, H, W, C); grid (B, ..., 2) of (x, y) in [-1, 1] -> (B, ...,
+    C): the four corners, each weighted by its bilinear weight where it
+    lies inside the image and by 0 elsewhere, summed in JAX's order."""
+    B, H, W, C = img.shape
+    x = _unnormalize(grid[..., 0], W, align_corners).reshape(B, -1)
+    y = _unnormalize(grid[..., 1], H, align_corners).reshape(B, -1)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    flat = img.reshape(B, H * W, C)
+    out = None
+    for ix, iy, w in ((x0, y0, wx0 * wy0), (x0 + 1, y0, wx1 * wy0),
+                      (x0, y0 + 1, wx0 * wy1), (x0 + 1, y0 + 1, wx1 * wy1)):
+        inside = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
+        idx = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).long()
+        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
+        t = vals * torch.where(inside, w, torch.zeros_like(w))[..., None]
+        out = t if out is None else out + t
+    return out.reshape(*grid.shape[:-1], C)
 
 
 def grid_sample_3d(vol: torch.Tensor, grid: torch.Tensor,

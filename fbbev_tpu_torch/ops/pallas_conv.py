@@ -321,17 +321,29 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
+# pixels (rows) of one f32-summed product of the weight gradient
+WGRAD_ROWS = 1 << 16
+
+
 def _wgrad_bf16(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Weight gradient of bf16 x (N, Cin, H, W) and g (N, Cout, H, W) as
-    (Cout, Cin, 3, 3) f32: ONE product per conv, (9 * Cin, N*H*W) x
-    (N*H*W, Cout), of x's nine shifted windows side by side
-    (:func:`im2col`, a copy of 9x the input) and g's pixels, the operands'
-    own values with f32 sums.  On an H100 one product per conv ran at
-    twice the speed of nine (Cin, Cout) products, one per tap, over the
-    flagship train step's convs (``chip_smoke.py``, PERF.md)."""
+    (Cout, Cin, 3, 3) f32: the product (9 * Cin, N*H*W) x (N*H*W, Cout) of
+    x's nine shifted windows side by side (:func:`im2col`, a copy of 9x
+    the input) and g's pixels, the operands' own values with f32 sums, in
+    slices of :data:`WGRAD_ROWS` pixels whose f32 results are summed in
+    order.  On an H100 one product per conv ran at twice the speed of
+    nine (Cin, Cout) products, one per tap, over the flagship train
+    step's convs (``chip_smoke.py``, PERF.md); the tensor-core product's
+    own f32 sums drift over a long reduction (VoVNet-99's stem at 6 x
+    256x704, 1,081,344 pixels: past 1e-5 of the largest value), the
+    slices keep them within it."""
     N, Cin, H, W = x.shape
     gm = g.permute(0, 2, 3, 1).reshape(N * H * W, -1)
-    out = _mm_f32(im2col(x).t(), gm)                      # (9 * Cin, Cout)
+    a = im2col(x)
+    out = None
+    for i in range(0, a.shape[0], WGRAD_ROWS):
+        p = _mm_f32(a[i:i + WGRAD_ROWS].t(), gm[i:i + WGRAD_ROWS])
+        out = p if out is None else out.add_(p)           # (9 * Cin, Cout)
     return out.reshape(3, 3, Cin, -1).permute(3, 2, 0, 1)
 
 

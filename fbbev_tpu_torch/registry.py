@@ -1,9 +1,11 @@
 """String-keyed component registry, the port's own copy of
 ``fbbev_tpu/registry.py``: a config's ``dict(type='FBOCC', ...)`` names a
 registered constructor, the other keys are its arguments.  The port's
-``FBOCC`` is registered in :data:`DETECTORS`, its datasets and dataset
-wrappers in :data:`DATASETS`, the detection heads (``CenterHead``,
-``FRPN``) in :data:`HEADS`.
+``FBOCC`` is registered in :data:`DETECTORS`, its image backbones
+(``ResNet``, ``VoVNetCP``, ``ConvNeXt``, ``SwinTransformer``, ``DLANet``)
+in :data:`BACKBONES`, its datasets and dataset wrappers in
+:data:`DATASETS`, the detection heads (``CenterHead``, ``FRPN``) in
+:data:`HEADS`.
 """
 
 from __future__ import annotations
@@ -70,5 +72,6 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry, **extra_kwargs):
 # The registries a port module registers in (the JAX package has the
 # reference mmdet3d's ten; the others come with the modules that use them).
 DETECTORS = Registry("detectors")
+BACKBONES = Registry("backbones")
 DATASETS = Registry("datasets")
 HEADS = Registry("heads")

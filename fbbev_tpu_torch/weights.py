@@ -5,9 +5,10 @@ weights from the JAX package is a relayout: its ``params`` /
 ``batch_stats`` trees (nested dicts of numpy arrays) become a flat state
 dict in PyTorch layouts, loaded with ``load_state_dict(strict=True)``.
 The rules are this package's own copy of the flagship FB-OCC rules of
-``fbbev_tpu/train/checkpoint_convert.py`` (export direction), and rules of
-its own for the detection heads (``pts_bbox_head``, ``FRPN``), for which
-that file has none:
+``fbbev_tpu/train/checkpoint_convert.py`` and of its VoVNet, ConvNeXt,
+Swin and DLA backbone rules (export direction), and rules of its own for
+the detection heads (``pts_bbox_head``, ``FRPN``), for which that file has
+none:
 
 * conv kernel (kh, kw, I, O) / (kd, kh, kw, I, O) -> (O, I, k...)
 * transposed-conv kernel (kd, kh, kw, I, O), stored unflipped for
@@ -16,6 +17,8 @@ that file has none:
 * dense (I, O) -> linear (O, I); a dense standing for a 1x1 conv gets
   trailing (1, 1)
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
+* Swin's patch-merging LayerNorm and reduction: JAX's ``(dy, dx, c)``
+  channel order -> the reference's unfold order ``c*4 + dy*2 + dx``
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fbbev_tpu_torch.models import convnext, dla, resnet, swin, vovnet
 from fbbev_tpu_torch.models.centerpoint_head import BRANCHES
 
 
@@ -73,15 +77,20 @@ class _Exporter:
         self._put(src + ".running_mean", "batch_stats", dst + ("mean",))
         self._put(src + ".running_var", "batch_stats", dst + ("var",))
 
-    def linear(self, src, dst, conv1x1=False):
-        self._put(src + ".weight", "params", dst + ("kernel",),
-                  lambda k: k.T[:, :, None, None] if conv1x1 else k.T)
+    def linear(self, src, dst, conv1x1=False, rows=None):
+        """``rows``: the kernel's input rows in the port's order."""
+        def relayout(k):
+            k = k if rows is None else k[rows]
+            return k.T[:, :, None, None] if conv1x1 else k.T
+        self._put(src + ".weight", "params", dst + ("kernel",), relayout)
         if self._has(dst + ("bias",)):
             self._put(src + ".bias", "params", dst + ("bias",))
 
-    def layernorm(self, src, dst):
-        self._put(src + ".weight", "params", dst + ("scale",))
-        self._put(src + ".bias", "params", dst + ("bias",))
+    def layernorm(self, src, dst, rows=None):
+        """``rows``: the channels in the port's order."""
+        relayout = None if rows is None else (lambda v: v[rows])
+        self._put(src + ".weight", "params", dst + ("scale",), relayout)
+        self._put(src + ".bias", "params", dst + ("bias",), relayout)
 
     def raw(self, src, dst):
         self._put(src, "params", dst)
@@ -91,25 +100,223 @@ class _Exporter:
         self.bn(src_bn, dst + ("bn",))
 
 
-def _resnet(b, src: str, dst: str, spec: dict):
-    """ResNet stages: ``spec['blocks']`` blocks per stage, each of
-    ``spec['convs']`` convs (3 for bottlenecks, 2 for basic blocks)."""
-    b.convbn(f"{src}.conv1", f"{src}.bn1", (dst, "stem"))
-    for stage, n in enumerate(spec["blocks"]):
+def resnet_rules(b, src: str, dst: Tuple[str, ...], blocks, convs: int):
+    """ResNet stages: ``blocks`` blocks per stage, each of ``convs`` convs
+    (3 for bottlenecks, 2 for basic blocks)."""
+    b.convbn(f"{src}conv1", f"{src}bn1", dst + ("stem",))
+    for stage, n in enumerate(blocks):
         for i in range(n):
-            p = f"{src}.layer{stage + 1}.{i}"
-            d = (dst, f"layer{stage + 1}_{i}")
-            for c in range(1, spec["convs"] + 1):
-                b.convbn(f"{p}.conv{c}", f"{p}.bn{c}", d + (f"conv{c}",))
+            p = f"{src}layer{stage + 1}.{i}."
+            d = dst + (f"layer{stage + 1}_{i}",)
+            for c in range(1, convs + 1):
+                b.convbn(f"{p}conv{c}", f"{p}bn{c}", d + (f"conv{c}",))
             if b._has(d + ("downsample", "conv", "kernel")):
-                b.convbn(f"{p}.downsample.0", f"{p}.downsample.1",
+                b.convbn(f"{p}downsample.0", f"{p}downsample.1",
                          d + ("downsample",))
+
+
+def vovnet_rules(b, src: str, dst: Tuple[str, ...], blocks,
+                 layers: int) -> None:
+    """VoVNet (``checkpoint_convert.py:356``): ``blocks`` OSA blocks per
+    stage of ``layers`` 3x3 ConvBN each."""
+    for i in (1, 2, 3):
+        b.convbn(f"{src}stem.stem_{i}/conv", f"{src}stem.stem_{i}/norm",
+                 dst + (f"stem{i}",))
+    for stage, nb in enumerate(blocks):
+        n = stage + 2
+        for k in range(nb):
+            osa = f"OSA{n}_{k + 1}"
+            p, d = f"{src}stage{n}.{osa}.", dst + (f"stage{n}_{k}",)
+            for i in range(layers):
+                q = f"{p}layers.{i}.{osa}_{i}"
+                b.convbn(f"{q}/conv", f"{q}/norm", d + (f"conv{i}",))
+            b.convbn(f"{p}concat.{osa}_concat/conv",
+                     f"{p}concat.{osa}_concat/norm", d + ("concat",))
+            b.conv(f"{p}ese.fc", d + ("ese", "fc"))
+
+
+def convnext_rules(b, src: str, dst: Tuple[str, ...], depths,
+                   out_indices) -> None:
+    """ConvNeXt (``checkpoint_convert.py:386``)."""
+    b.conv(f"{src}downsample_layers.0.0", dst + ("stem_conv",))
+    b.layernorm(f"{src}downsample_layers.0.1", dst + ("stem_norm",))
+    for i in range(1, len(depths)):
+        b.layernorm(f"{src}downsample_layers.{i}.0", dst + (f"down{i}_norm",))
+        b.conv(f"{src}downsample_layers.{i}.1", dst + (f"down{i}_conv",))
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            p, d = f"{src}stages.{i}.{j}.", dst + (f"stage{i}_{j}",)
+            b.conv(f"{p}depthwise_conv", d + ("dwconv",))
+            b.layernorm(f"{p}norm", d + ("norm",))
+            b.linear(f"{p}pointwise_conv1", d + ("pwconv1",))
+            b.linear(f"{p}pointwise_conv2", d + ("pwconv2",))
+            b.raw(f"{p}gamma", d + ("gamma",))
+        if i in out_indices:
+            b.layernorm(f"{src}norm{i}", dst + (f"out_norm{i}",))
+
+
+def swin_merge_rows(C: int) -> np.ndarray:
+    """The JAX channel of each of the port's 4C patch-merging channels:
+    JAX concatenates a 2x2 neighbourhood as ``(dy, dx, c)``, the port in
+    unfold order ``c*4 + dy*2 + dx`` (``checkpoint_convert.py:452-489``)."""
+    o = np.arange(4 * C)
+    return np.argsort((o % C) * 4 + (o // (2 * C)) * 2 + (o // C) % 2)
+
+
+def swin_block_rules(b, src: str, dst: Tuple[str, ...]) -> None:
+    """One ``SwinBlock``."""
+    b.layernorm(f"{src}norm1", dst + ("norm1",))
+    b.raw(f"{src}attn.w_msa.relative_position_bias_table",
+          dst + ("attn", "rel_pos_bias"))
+    b.linear(f"{src}attn.w_msa.qkv", dst + ("attn", "qkv"))
+    b.linear(f"{src}attn.w_msa.proj", dst + ("attn", "proj"))
+    b.layernorm(f"{src}norm2", dst + ("norm2",))
+    b.linear(f"{src}ffn.layers.0.0", dst + ("mlp_fc1",))
+    b.linear(f"{src}ffn.layers.1", dst + ("mlp_fc2",))
+
+
+def swin_rules(b, src: str, dst: Tuple[str, ...], depths, embed: int,
+               out_indices) -> None:
+    """Swin (``checkpoint_convert.py:443``), the merges' LayerNorm and
+    reduction rows permuted by :func:`swin_merge_rows`."""
+    b.conv(f"{src}patch_embed.projection", dst + ("patch_embed",))
+    b.layernorm(f"{src}patch_embed.norm", dst + ("patch_norm",))
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            swin_block_rules(b, f"{src}stages.{i}.blocks.{j}.",
+                             dst + (f"stage{i}_{j}",))
+        if i < len(depths) - 1:
+            rows = swin_merge_rows(embed * 2 ** i)
+            ds = f"{src}stages.{i}.downsample."
+            b.layernorm(f"{ds}norm", dst + (f"merge{i + 1}_norm",), rows=rows)
+            b.linear(f"{ds}reduction", dst + (f"merge{i + 1}_reduce",),
+                     rows=rows)
+        if i in out_indices:
+            b.layernorm(f"{src}norm{i}", dst + (f"out_norm{i}",))
+
+
+def _dla_tree(b, src: str, dst: Tuple[str, ...], levels: int, cin: int,
+              cout: int) -> None:
+    if cin != cout:
+        b.convbn(f"{src}project.0", f"{src}project.1", dst + ("project",))
+    if levels == 1:
+        for t in ("tree1", "tree2"):
+            for c in (1, 2):
+                b.convbn(f"{src}{t}.conv{c}", f"{src}{t}.norm{c}",
+                         dst + (t, f"conv{c}"))
+        b.convbn(f"{src}root.conv", f"{src}root.norm", dst + ("root", "conv"))
+    else:
+        _dla_tree(b, f"{src}tree1.", dst + ("tree1",), levels - 1, cin, cout)
+        _dla_tree(b, f"{src}tree2.", dst + ("tree2",), levels - 1, cout,
+                  cout)
+
+
+def dla_rules(b, src: str, dst: Tuple[str, ...], levels, channels) -> None:
+    """DLA (``checkpoint_convert.py:521-558``): the conv levels 0-1, then
+    the trees of ``levels[2:]`` levels into ``channels[2:]``."""
+    for name in ("base_layer", "level0", "level1"):
+        b.convbn(f"{src}{name}.0", f"{src}{name}.1", dst + (name,))
+    for lvl in range(2, 6):
+        _dla_tree(b, f"{src}level{lvl}.", dst + (f"level{lvl}",),
+                  levels[lvl], channels[lvl - 1], channels[lvl])
+
+
+def backbone_rules(b, src: str, dst: Tuple[str, ...], spec: dict) -> None:
+    """The rules of an image backbone of structure ``spec``
+    (:func:`backbone_spec`, :func:`jax_backbone_spec`): port names
+    prefixed by ``src``, JAX paths under ``dst``."""
+    t = spec["type"]
+    if t == "ResNet":
+        resnet_rules(b, src, dst, spec["blocks"], spec["convs"])
+    elif t == "VoVNetCP":
+        vovnet_rules(b, src, dst, spec["blocks"], spec["layers"])
+    elif t == "ConvNeXt":
+        convnext_rules(b, src, dst, spec["depths"], spec["out_indices"])
+    elif t == "SwinTransformer":
+        swin_rules(b, src, dst, spec["depths"], spec["embed"],
+                   spec["out_indices"])
+    elif t == "DLANet":
+        dla_rules(b, src, dst, spec["levels"], spec["channels"])
+    else:
+        raise KeyError(t)
+
+
+def backbone_spec(m: torch.nn.Module) -> dict:
+    """The structure :func:`backbone_rules` walks, read from a port
+    backbone."""
+    if isinstance(m, resnet.ResNet):
+        return dict(type="ResNet",
+                    blocks=tuple(len(getattr(m, f"layer{i}"))
+                                 for i in range(1, 5)),
+                    convs=3 if hasattr(m.layer1[0], "conv3") else 2)
+    if isinstance(m, vovnet.VoVNetCP):
+        s = vovnet.STAGE_SPECS[m.spec_name]
+        return dict(type="VoVNetCP", blocks=tuple(s["block_per_stage"]),
+                    layers=s["layer_per_block"])
+    if isinstance(m, convnext.ConvNeXt):
+        return dict(type="ConvNeXt",
+                    depths=tuple(convnext.SPECS[m.arch]["depths"]),
+                    out_indices=m.out_indices)
+    if isinstance(m, swin.SwinTransformer):
+        s = swin.SPECS[m.arch]
+        return dict(type="SwinTransformer", depths=tuple(s["depths"]),
+                    embed=s["embed"], out_indices=m.out_indices)
+    if isinstance(m, dla.DLANet):
+        s = dla.SPECS[m.arch]
+        return dict(type="DLANet", levels=tuple(s["levels"]),
+                    channels=tuple(s["channels"]))
+    raise KeyError(type(m).__name__)
+
+
+def _count(tree, prefix: str) -> int:
+    return sum(1 for k in tree if k.startswith(prefix))
+
+
+def _dla_jax_tree(tree) -> Tuple[int, int]:
+    """(levels, output channels) of a JAX DLA ``Tree`` subtree."""
+    if "root" in tree:
+        return 1, tree["root"]["conv"]["conv"]["kernel"].shape[-1]
+    levels, ch = _dla_jax_tree(tree["tree1"])
+    return levels + 1, ch
+
+
+def jax_backbone_spec(bb: Dict[str, Any]) -> dict:
+    """The structure :func:`backbone_rules` walks, read from a JAX
+    backbone's params tree."""
+    if "stem1" in bb:
+        return dict(type="VoVNetCP",
+                    blocks=tuple(_count(bb, f"stage{n}_")
+                                 for n in range(2, 6)),
+                    layers=_count(bb["stage2_0"], "conv"))
+    if "stem_conv" in bb:
+        n = _count(bb, "down") // 2 + 1
+        return dict(type="ConvNeXt",
+                    depths=tuple(_count(bb, f"stage{i}_") for i in range(n)),
+                    out_indices=tuple(i for i in range(n)
+                                      if f"out_norm{i}" in bb))
+    if "patch_embed" in bb:
+        n = _count(bb, "merge") // 2 + 1
+        return dict(type="SwinTransformer",
+                    depths=tuple(_count(bb, f"stage{i}_") for i in range(n)),
+                    embed=bb["patch_embed"]["kernel"].shape[-1],
+                    out_indices=tuple(i for i in range(n)
+                                      if f"out_norm{i}" in bb))
+    if "base_layer" in bb:
+        trees = [_dla_jax_tree(bb[f"level{lvl}"]) for lvl in range(2, 6)]
+        return dict(type="DLANet",
+                    levels=(1, 1) + tuple(t[0] for t in trees),
+                    channels=(bb["level0"]["conv"]["kernel"].shape[-1],
+                              bb["level1"]["conv"]["kernel"].shape[-1])
+                    + tuple(t[1] for t in trees))
+    return dict(type="ResNet",
+                blocks=tuple(_count(bb, f"layer{i}_") for i in range(1, 5)),
+                convs=3 if "conv3" in bb["layer1_0"] else 2)
 
 
 def _rules(b, spec: dict) -> None:
     """Every rule of an FB-OCC of structure ``spec`` (:func:`_jax_spec`,
     :func:`_model_spec`)."""
-    _resnet(b, "img_backbone", "img_backbone", spec)
+    backbone_rules(b, "img_backbone.", ("img_backbone",), spec["backbone"])
     for i in range(2):
         b.conv(f"img_neck.lateral_convs.{i}.conv", ("img_neck", f"lateral{i}"))
     b.conv("img_neck.fpn_convs.0.conv", ("img_neck", "fpn0"))
@@ -241,10 +448,7 @@ def _leaves(tree, prefix=()):
 
 def _jax_spec(params: Dict[str, Any]) -> dict:
     """The structure :func:`_rules` walks, read from a JAX params tree."""
-    bb = params["img_backbone"]
-    blocks = tuple(sum(1 for k in bb if k.startswith(f"layer{i}_"))
-                   for i in range(1, 5))
-    return dict(blocks=blocks, convs=3 if "conv3" in bb["layer1_0"] else 2,
+    return dict(backbone=jax_backbone_spec(params["img_backbone"]),
                 backward_projection="backward_projection" in params,
                 occupancy_head="occupancy_head" in params,
                 detection_head=sum(1 for k in params.get("pts_bbox_head", {})
@@ -253,10 +457,7 @@ def _jax_spec(params: Dict[str, Any]) -> dict:
 
 def _model_spec(model: torch.nn.Module) -> dict:
     """The structure :func:`_rules` walks, read from a port ``FBOCC``."""
-    bb = model.img_backbone
-    return dict(blocks=tuple(len(getattr(bb, f"layer{i}"))
-                             for i in range(1, 5)),
-                convs=3 if hasattr(bb.layer1[0], "conv3") else 2,
+    return dict(backbone=backbone_spec(model.img_backbone),
                 backward_projection=model.backward_projection is not None,
                 occupancy_head=model.occupancy_head is not None,
                 detection_head=(0 if model.pts_bbox_head is None

@@ -30,7 +30,8 @@ FLAGSHIP = "fbocc-r50-cbgs_depth_16f.py"
 NESTED = "fbocc-r50-cbgs_depth_16f_nested.py"
 BUILT = (FLAGSHIP, NESTED, "fbocc-r50_depth_1f.py",
          "fbocc-r50-tiny_synthetic.py", "fbocc-r50_synthetic_smoke.py",
-         "fbocc-r50_synthetic_long.py", "fbbev-r50-det_16f.py")
+         "fbocc-r50_synthetic_long.py", "fbbev-r50-det_16f.py",
+         "fbocc-vov99_depth_16f_512x1408.py")
 
 
 def port_cfg(name):
@@ -99,8 +100,7 @@ def test_build_model_fields_equal_jax(name):
     """``train.loop.build_model`` builds every serving / synthetic config,
     and the model's constructor fields are the JAX model's: JAX's
     ``use_tiled_warp`` is the port's ``fuse_warp``, and the port's model
-    has no ``readd`` (JAX's forward never reads it) and no
-    ``backbone_arch`` (M12)."""
+    has no ``readd`` (JAX's forward never reads it)."""
     from fbbev_tpu_torch.train.loop import _grid_size, build_model
     model = build_model(port_cfg(name), device="cpu")
     fields = _jax_fields(name)
@@ -108,7 +108,7 @@ def test_build_model_fields_equal_jax(name):
     for f, v in fields.items():
         if f in ("grid_config", "bevformer_grid_config") and v is None:
             continue  # both packages take their default grid
-        if f in ("readd", "backbone_arch"):
+        if f == "readd":
             assert not hasattr(model, f), f
             continue
         got = getattr(model, renamed.get(f, f))
@@ -127,14 +127,6 @@ def test_flat_and_nested_flagship_build_the_same_model():
     assert flat["dtype"] == nested["dtype"] == torch.bfloat16
 
 
-@pytest.mark.parametrize("name, milestone", [
-    ("fbocc-vov99_depth_16f_512x1408.py", "M12")])
-def test_unported_configs_raise(name, milestone):
-    from fbbev_tpu_torch.train.loop import build_model
-    with pytest.raises(NotImplementedError, match=milestone):
-        build_model(port_cfg(name), device="cpu")
-
-
 def test_registry_builds_the_port_fbocc():
     from fbbev_tpu_torch.models import FBOCC
     from fbbev_tpu_torch.models.builder import detector_kwargs
@@ -142,7 +134,7 @@ def test_registry_builds_the_port_fbocc():
     assert DETECTORS.get("FBOCC") is FBOCC
     kw = detector_kwargs({"type": "FBOCC", "use_tiled_warp": False,
                           "readd": True, "backbone_arch": "V-99-eSE"})
-    assert kw == {"fuse_warp": False}
+    assert kw == {"fuse_warp": False, "backbone_arch": "V-99-eSE"}
     with pytest.raises(KeyError, match="VoVNetCP"):
         build_from_cfg({"type": "VoVNetCP"}, DETECTORS)
     assert build_from_cfg(None, DETECTORS) is None

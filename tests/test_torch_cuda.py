@@ -900,3 +900,105 @@ def test_k7_at_the_detection_head_shapes(dev, shape):
     for got, want in pairs:
         d = (got.float() - want.float()).abs()
         assert (d / want.float().abs().clamp(min=1.0)).max() <= 2e-2
+
+
+# K7's distinct shapes in VoVNet-99 at 6 cameras x 512x1408 (the convs
+# that pass its gate, Cin % 64 == 0): stem_2, stage 2's five convs,
+# stage 3's, 4's and 5's first conv of the first and of the other blocks,
+# stage 4's conv1-4 (stage 3's and 5's, Cin 160 / 224, fall to cuDNN)
+VOV_K7_SHAPES = [(6, 256, 704, 64, 64), (6, 128, 352, 128, 128),
+                 (6, 64, 176, 256, 160), (6, 64, 176, 512, 160),
+                 (6, 32, 88, 512, 192), (6, 32, 88, 768, 192),
+                 (6, 32, 88, 192, 192), (6, 16, 44, 768, 224),
+                 (6, 16, 44, 1024, 224)]
+
+
+@pytest.mark.parametrize("shape", VOV_K7_SHAPES,
+                         ids=["x".join(map(str, s)) for s in VOV_K7_SHAPES])
+def test_k7_at_the_vovnet_shapes(dev, shape):
+    """K7 at each VoVNet-99 shape, bf16, forward (a partial 64-channel N
+    tile at Cout 160 and 224) and input gradient (Cout as its input
+    channels: a partial last K box) against the plain version: 2e-2 of
+    max(1, |y|), as ``test_k7_kernel_matches_plain``."""
+    test_k7_at_the_detection_head_shapes(dev, shape)
+
+
+def test_k3_global_row_plan_at_the_vovnet_map(dev):
+    """K3 at the 512x1408 config's cross-attention: six 32x88 maps of 8
+    heads x 10 bf16 (450,560 bytes each, over the staged plan's shared
+    memory), 4096 queries, 8 points -- the global-row plan -- within 1e-4
+    of the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(23)
+    B, H, W, Q, P = 6, 32, 88, 4096, 8
+    assert not K3.plan_msda(B, H * W, 8, 10, Q, P, torch.bfloat16).staged
+    v = torch.randn(B, H * W, 8, 10, generator=g).to(dev, torch.bfloat16)
+    loc = (torch.rand(B, Q, 8, P, 2, generator=g) * 1.2 - 0.1).to(dev)
+    attn = torch.softmax(torch.randn(B, Q, 8, P, generator=g), -1).to(dev)
+    got = K3.deformable_sample_attend(v, (H, W), loc, attn)
+    want = K3.deformable_sample_attend_plain(v, (H, W), loc, attn)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_tiny_vovnet_config_on_card_matches_cpu(dev):
+    """The tiny config with a V-19-eSE backbone (2 cameras at 64x176,
+    25x25x8, float32, TF32 off), the same seeded weights on the card and
+    on the CPU, 3 frames through ``FixedRigPipeline``: labels agree on >=
+    95% of voxels (random-weight logits have near-ties), K1's f32 kernel,
+    K2 and K3 launched each frame."""
+    import os
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.train.loop import build_model
+    cfg = Config.fromfile(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "fbbev_tpu_torch", "configs", "fbocc-r50-tiny_synthetic.py"))
+    cfg.merge_from_options({"model.backbone_type": "VoVNetCP",
+                            "model.backbone_arch": "V-19-eSE"})
+    rots = [np.stack([[np.sin(th), -np.cos(th), 0.0], [0.0, 0.0, -1.0],
+                      [np.cos(th), np.sin(th), 0.0]], 1)
+            for th in (0.0, np.pi)]
+    cam = geometry.CamParams(*(torch.tensor(np.asarray(a, np.float32))[None]
+                               for a in (
+        rots, [[0.0137, 0.0137, 1.5137], [0.1137, 0.0637, 1.5137]],
+        np.tile([[110.0, 0, 88], [0, 110.0, 32], [0, 0, 1]], (2, 1, 1)),
+        np.tile(np.eye(3), (2, 1, 1)), np.zeros((2, 3)))),
+        bda=torch.eye(3)[None])
+    rng = np.random.RandomState(24)
+    imgs = [rng.randn(1, 2, 64, 176, 3).astype(np.float32) for _ in range(3)]
+    out = {}
+    for d in ("cpu", dev):
+        m = build_model(cfg, device=d,
+                        generator=torch.Generator().manual_seed(5))
+        pipe = FixedRigPipeline(m, cam)
+        counts = (K1.f32_launches, K2.launches, K3.launches)
+        c2p = np.eye(4, dtype=np.float32)[None]
+        out[d] = [pipe(im, i == 0, c2p).cpu() for i, im in enumerate(imgs)]
+        if d != "cpu":
+            assert (K1.f32_launches - counts[0], K2.launches - counts[1],
+                    K3.launches - counts[2]) == (3, 3, 3)
+    for a, b in zip(out["cpu"], out[dev]):
+        assert (a == b).float().mean() >= 0.95
+
+
+def test_dcnv3_on_card_matches_cpu(dev):
+    """``dcnv3_core`` (plain PyTorch, no kernel) on the card against the
+    CPU, float32, stride 2 and dilation 2: within 1e-5, and its input
+    gradients within 1e-4."""
+    from fbbev_tpu_torch.ops.dcnv3 import dcnv3_core
+    g = torch.Generator(device="cpu").manual_seed(25)
+    B, H, W, G, Cg, Ho, Wo = 2, 17, 23, 4, 8, 9, 12
+    x = torch.randn(B, H, W, G * Cg, generator=g)
+    off = torch.randn(B, Ho, Wo, G * 9 * 2, generator=g) * 2
+    mask = torch.softmax(torch.randn(B, Ho, Wo, G, 9, generator=g),
+                         -1).reshape(B, Ho, Wo, G * 9)
+    cot = torch.randn(B, Ho, Wo, G * Cg, generator=g)
+    res = {}
+    for d in ("cpu", dev):
+        args = [t.to(d, copy=True).requires_grad_() for t in (x, off, mask)]
+        y = dcnv3_core(*args, stride=2, dilation=2, groups=G)
+        (y * cot.to(d)).sum().backward()
+        res[d] = [y.detach().cpu()] + [a.grad.cpu() for a in args]
+    torch.testing.assert_close(res[dev][0], res["cpu"][0], rtol=0,
+                               atol=1e-5)
+    for a, b in zip(res[dev][1:], res["cpu"][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -39,6 +39,16 @@ K7_SHAPES = [((6, 64, 176, 64, 64), 3), ((6, 32, 88, 128, 128), 3),
 # the Z-folded BEV (8 x 256 channels) and the 36 branch convs
 K7_HEAD_SHAPES = [((1, 100, 100, 2048, 64), 1), ((1, 100, 100, 64, 64), 36)]
 
+# and in VoVNet-99 at 6 cameras x 512x1408 (``fbocc-vov99_depth_16f_
+# 512x1408.py`` with pallas3x3, ``chip_smoke.py::VOV_K7_SHAPES``): the
+# convs with Cin % 64 == 0 -- stem_2, stage 2's, the first conv of each
+# block of stages 3-5, stage 4's conv1-4 -- Cout 160 and 224 among them
+VOV_K7_SHAPES = [((6, 256, 704, 64, 64), 1), ((6, 128, 352, 128, 128), 5),
+                 ((6, 64, 176, 256, 160), 1), ((6, 64, 176, 512, 160), 2),
+                 ((6, 32, 88, 512, 192), 1), ((6, 32, 88, 768, 192), 8),
+                 ((6, 32, 88, 192, 192), 36), ((6, 16, 44, 768, 224), 1),
+                 ((6, 16, 44, 1024, 224), 2)]
+
 
 def _check_plan(p, N, H, W, Cin, Cout, sms=K6.SMS):
     """What the kernel and its launch need of a plan."""
@@ -75,6 +85,19 @@ def test_k7_bf16_plan_of_the_detection_head(shape):
     JAX's ``_pallas3x3_eligible`` with the port's Cout % 16), and the
     bf16 kernel has a legal plan for each, forward and input gradient
     (the shared conv's dgrad 64 -> 2048)."""
+    N, H, W, Cin, Cout = shape
+    assert K7.supports((N, Cin, H, W), Cout)
+    for a, b in ((Cin, Cout), (Cout, Cin)):
+        _check_plan(K7.plan_bf16(N, H, W, a, b), N, H, W, a, b)
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in VOV_K7_SHAPES],
+                         ids=["x".join(map(str, s)) for s, _ in VOV_K7_SHAPES])
+def test_k7_bf16_plan_of_the_vovnet_convs(shape):
+    """VoVNet-99's gated convs take K7 and have a legal bf16 plan forward
+    (a partial last N tile at Cout 160 and 224) and in the input gradient
+    (Cout as its input channels: a partial last 64-channel K box at 160
+    and 224), stem_2's 6 x 256x704 the largest M K7 has taken."""
     N, H, W, Cin, Cout = shape
     assert K7.supports((N, Cin, H, W), Cout)
     for a, b in ((Cin, Cout), (Cout, Cin)):
@@ -165,6 +188,10 @@ def _plans_to_emulate(N, H, W, Cin, Cout, which):
     (1, 9, 20, 64, 144),   # a ragged 128-wide N tile
     (1, 6, 10, 2048, 64),  # the detection head's shared conv, cut in space
     (1, 5, 12, 64, 64),    # its branch convs, cut in space
+    # VoVNet-99's, cut in space: Cout 160 and 224 leave a partial N tile,
+    # and as the input gradient's Cin a partial last K box
+    (1, 6, 10, 256, 160),  # stage 3's first conv
+    (1, 4, 9, 768, 224),   # stage 5's first conv of a later block
 ])
 def test_k7_bf16_tiling_matches_pallas_conv(shape, which):
     """The bf16 kernel's decomposition, emulated in f32 from the wrapper's
@@ -261,3 +288,19 @@ def test_k7_bf16_wgrad_matches_jax_einsum(N, H, W, Cin, Cout,
     d = np.abs(got - want)
     assert (d <= 2.0 ** -7 * np.abs(want) + 1e-5 * scale).all()
     assert (d > 0).mean() < 1e-2
+
+
+def test_k7_bf16_wgrad_sums_its_pixel_slices(monkeypatch):
+    """With the weight gradient's product cut into slices of 100 pixels
+    (``WGRAD_ROWS``; 2 x 9 x 13 = 234 pixels: two whole slices and a
+    partial one) its f32 result equals the f32 path's (``_wgrad_f32``) to
+    1e-5 of the largest value, as unsliced."""
+    monkeypatch.setattr(K7, "WGRAD_ROWS", 100)
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(2, 64, 9, 13).astype(np.float32)).to(
+        torch.bfloat16)
+    g = torch.from_numpy(rng.randn(2, 32, 9, 13).astype(np.float32)).to(
+        torch.bfloat16)
+    got, want = K7._wgrad_bf16(x, g), K7._wgrad_f32(x, g)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * want.abs().max().item())
