@@ -95,7 +95,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
     tiny config with a V-19-eSE backbone in float32 on the card and on
     the CPU.  Adds ``vov_launches`` to K1-K4's entries and the entries
     ``vov_bev_pool``, ``vov_msda``, ``vov_conv3x3``,
-    ``vov_conv3x3_dgrad``.
+    ``vov_conv3x3_dgrad``.  Also serves the folded VoVNet-99 int8
+    (``enable_int8`` on 2 frames: 132 convs as the model's modules
+    predict, 3 frames with exact launches, ``benchmark(iters=20)``) and
+    holds the int8 conv kernel at its shapes (entry ``vov_conv_s8``).
+14. Int8 serving (``run_int8``, run after the config phase): the
+    flagship config, BatchNorms warmed up, folded, bf16, with
+    ``FixedRigPipeline.enable_int8`` on two frames (exactly 70 convs
+    quantized, 70 ``conv_s8`` launches and K1-K4 once a frame over 5
+    frames, labels against the bf16 stream >= 0.85),
+    ``benchmark(iters=20)`` int8 beside bf16 with peak memory; the BEV
+    side included (97 convs, 100 launches a frame over 3 frames); the int8
+    conv kernel bit for bit against its plain version (``torch.equal``,
+    int32 sums and outputs) at every distinct shape of those streams and
+    a grouped one, timed per call, from a CUDA graph, beside its plain
+    version, ``torch._int_mm`` on a prebuilt im2col, cuDNN's bf16 conv
+    and its bound; the tiny float32 config int8 card vs CPU (>= 0.999);
+    ``tools.serving_bench`` (int8 by default) and ``tools.fidelity --int8
+    --bn-warmup 3``.  Adds the entries ``conv_s8`` and ``conv_s8_bev``
+    and ``int8_launches`` to K1-K4's.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -107,6 +125,7 @@ train step's time and its device time by kernel; ``--profile-det`` the
 detection config's eval forward, decode and train step with K7;
 ``--profile-vov`` the folded VoVNet-99 stream at 6 x 512x1408 (frame
 time, device time by stage and kernel, the depth net's convs one by one);
+``--profile-int8`` the folded flagship served int8 and bf16 in turns;
 ``--profile-default``
 the default configuration alone; ``--profile-occ`` the routed and blend
 streams, those that take K8 and K9 (copied beside an older tree's
@@ -114,7 +133,8 @@ package, it profiles that package).  ``--k6-plans`` and ``--k7-plans`` time
 every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
 ``--config`` runs the config phase (10.) alone, ``--loop`` the loop
 phase (11.), ``--det`` the detection phase (12.), ``--vov`` the backbones
-phase (13.).
+phase (13.), ``--int8`` the int8 phase (14., with ``conv_s8.cu``'s ptxas
+lines).
 ``--k1`` builds the kernels, prints the ``-Xptxas -v`` lines of
 ``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
 plain versions at the flagship (K5 also bit for bit against K1's one-slot
@@ -138,10 +158,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 CUDA-core
-# FLOP/s, bf16 tensor-core FLOP/s.
+# FLOP/s, bf16 tensor-core FLOP/s, int8 tensor-core OP/s.
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+INT8_TC_OPS = 1979e12
 
 FRAMES = 6
 T0 = time.perf_counter()
@@ -229,9 +250,10 @@ def graph_time(fn, reps=10, replays=5):
     return t0.elapsed_time(t1) / (reps * replays)
 
 
-def bound(nbytes, f32_flops=0.0, tc_flops=0.0):
+def bound(nbytes, f32_flops=0.0, tc_flops=0.0, s8_ops=0.0):
     t_bytes = nbytes / HBM_BPS
-    t_ops = f32_flops / F32_FLOPS + tc_flops / BF16_TC_FLOPS
+    t_ops = (f32_flops / F32_FLOPS + tc_flops / BF16_TC_FLOPS
+             + s8_ops / INT8_TC_OPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1362,12 +1384,19 @@ PER_FRAME = {
     # voxel pool, K3 twice, K1; in training none of them
     "forward": dict(msda=1, msda_selfattn=1, fuse_warp=1),
     "train": dict(),
+    # the flagship served int8 (image trunk: 70 convs), and with the BEV
+    # side (97 convs, 100 launches: the occ head's occ_pred_conv.0 runs
+    # on each of its 4 levels, the coarse-pred reorder)
+    "int8": dict(bev_pool=1, msda=1, msda_selfattn=1, fuse_warp=1,
+                 conv_s8=70),
+    "int8_bev": dict(bev_pool=1, msda=1, msda_selfattn=1, fuse_warp=1,
+                     conv_s8=100),
 }
 
 
 def _counted():
     """(module, counter attribute, name) of every serving kernel."""
-    from fbbev_tpu_torch.ops import pallas_conv3d, pallas_deform, \
+    from fbbev_tpu_torch.ops import conv_s8, pallas_conv3d, pallas_deform, \
         pallas_fuse_warp, pallas_occ_fuse, pallas_occ_tail, pallas_pool, \
         pallas_sample, pallas_warp
     return [(pallas_pool, "launches", "bev_pool"),
@@ -1379,7 +1408,8 @@ def _counted():
             (pallas_conv3d, "launches", "conv3d"),
             (pallas_occ_tail, "launches", "occ_tail"),
             (pallas_occ_fuse, "launches", "occ_fuse"),
-            (pallas_deform, "launches", "pallas_deform")]
+            (pallas_deform, "launches", "pallas_deform"),
+            (conv_s8, "launches", "conv_s8")]
 
 
 def reset_counts():
@@ -1666,8 +1696,8 @@ def run_config(dev):
     # before it: serving_bench's (rounds + 1) x chunk frames, benchmark's
     # iters + 1 eval forwards (K1 1, K3 2 each) or train steps (none)
     for tool, argv, calls, per in (
-            (serving_bench, [flagship, "--chunk", "4", "--rounds", "2"], 12,
-             "default"),
+            (serving_bench, [flagship, "--chunk", "4", "--rounds", "2",
+                             "--no-int8"], 12, "default"),
             (benchmark, [flagship, "--iters", "5"], 6, "forward"),
             (benchmark, [flagship, "--iters", "3", "--train-step"], 4,
              "train")):
@@ -1683,6 +1713,422 @@ def run_config(dev):
                       PER_FRAME[per])
         torch.cuda.empty_cache()
     return k1_t1, k1_f32
+
+
+INT8_FRAMES = 5
+INT8_BEV_FRAMES = 3
+INT8_AGREE = 0.85      # int8 labels against the unquantized bf16 stream's
+INT8_TINY_AGREE = 0.999  # the tiny float32 config int8, card against CPU
+S8_SRC = "fbbev_tpu_torch/csrc/conv_s8.cu"
+S8_REPLACES = ("none: JAX runs XLA int8 convs, fbbev_tpu/utils/"
+               "quantize.py:382, :403, :429, :460")
+# a grouped conv, on no model path: (x shape, Cout, kernel, stride, groups)
+S8_GROUPED = ((6, 128, 64, 176), 128, 3, 2, 2)
+
+
+def rig_batch(cam, imgs, start, rt):
+    """An eval batch dict of ``imgs`` on ``cam`` (``FBOCC.forward``)."""
+    import torch
+    dev = imgs.device
+    b = {k: getattr(cam, k).to(dev) for k in cam._fields}
+    b.update(imgs=imgs, start_of_sequence=torch.full((1,), start,
+                                                      device=dev),
+             sequence_group_idx=torch.zeros(1, dtype=torch.int32,
+                                            device=dev),
+             curr_to_prev_ego_rt=torch.as_tensor(rt).to(dev))
+    return b
+
+
+def s8_recorded(run):
+    """``run()`` with the int8 conv's wrapper recording each distinct call
+    (input shape, strides, type, weights' shape, conv arguments, per-
+    channel or not): (run's result, {key: [x copy, qp, args, calls]})."""
+    from fbbev_tpu_torch.ops import conv_s8
+    real, seen = conv_s8.conv_s8, {}
+
+    def record(x, qp, *args):
+        key = (tuple(x.shape), x.stride(), str(x.dtype)[6:],
+               tuple(qp["w_q"].shape), tuple(tuple(a) if isinstance(
+                   a, (tuple, list)) else a for a in args),
+               qp["m_x"] is not None)
+        if key not in seen:
+            seen[key] = [x.clone(), qp, args, 0]
+        seen[key][3] += 1
+        return real(x, qp, *args)
+
+    conv_s8.conv_s8 = record
+    try:
+        result = run()
+    finally:
+        conv_s8.conv_s8 = real
+    return result, seen
+
+
+def im2col_s8(xq, w_shape, stride, padding, dilation):
+    """The (M, K) int8 im2col of quantized ``xq`` (N, C, [D,] H, W), K in
+    the packed weights' order (tap-major, channel-minor): the library
+    row's prebuilt operand."""
+    import torch
+    import torch.nn.functional as F
+    n = xq.dim() - 2
+    st, pd, dl = (tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+                  for v in (stride, padding, dilation))
+    ks = tuple(w_shape[2:])
+    x = F.pad(xq, [p for q in reversed(pd) for p in (q, q)])
+    N, C = x.shape[:2]
+    out = [(x.shape[2 + i] - dl[i] * (ks[i] - 1) - 1) // st[i] + 1
+           for i in range(n)]
+    s = x.stride()
+    win = x.as_strided(
+        [N] + out + list(ks) + [C],
+        [s[0]] + [s[2 + i] * st[i] for i in range(n)]
+        + [s[2 + i] * dl[i] for i in range(n)] + [s[1]])
+    return win.reshape(-1, C * int(np.prod(ks)))
+
+
+def s8_products(x_shape, w_shape, y_shape, stride, padding, dilation):
+    """The multiply-adds an int8 conv of these shapes must do: for each
+    (tap, output pixel) pair whose input lies on the map, Cin / groups
+    products for each output channel.  A tap off the map multiplies the
+    zero padding (at the depth net's 16 rows, dilation 18 leaves the
+    3x3 kernel's top and bottom rows off the map entirely).  The pairs
+    factor over the spatial axes."""
+    n = len(w_shape) - 2
+    st, pd, dl = (tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+                  for v in (stride, padding, dilation))
+    pairs = x_shape[0]
+    for i in range(n):
+        pairs *= sum(
+            1 for t in range(w_shape[2 + i]) for o in range(y_shape[2 + i])
+            if 0 <= o * st[i] - pd[i] + t * dl[i] < x_shape[2 + i])
+    return pairs * w_shape[1] * w_shape[0]
+
+
+def check_conv_s8(dev, seen, label):
+    """The int8 conv kernel at each recorded call of ``seen``
+    (:func:`s8_recorded`): bit for bit against its plain version, int32
+    sums and outputs (``torch.equal``); per call and from a CUDA graph;
+    the plain version; ``torch._int_mm`` on a prebuilt im2col where its
+    rules allow (M > 16, K and N multiples of 8, one group); cuDNN's bf16
+    conv of the same shape; its bound (bytes once / 3.35 TB/s, the
+    products of :func:`s8_products` / 1979 TOP/s).  One line per shape;
+    returns the entry of the pass (each figure summed over the convs the
+    calls stand for)."""
+    import torch
+    import torch.nn.functional as F
+    from fbbev_tpu_torch.ops import conv_s8 as S8
+    tot = dict(ms=0.0, graph_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, cudnn_bf16_ms=0.0, library_ms=0.0,
+               library_kernel_ms=0.0)
+    n_convs = n_lib = 0
+    for key, (x, qp, args, calls) in sorted(seen.items(),
+                                            key=lambda kv: -kv[1][3]):
+        y, acc = S8.conv_s8(x, qp, *args, return_sums=True)
+        want, want_acc = S8.conv_s8_plain(x, qp, *args, return_sums=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(acc, want_acc) and torch.equal(y, want)):
+            err = (y.float() - want.float()).abs().max().item()
+            raise AssertionError(f"{label}: conv_s8 differs from its plain "
+                                 f"version at {key}: sums equal "
+                                 f"{torch.equal(acc, want_acc)}, max_abs_err "
+                                 f"{err}")
+        w = qp["w_q"]
+        M, K, Nc = y.numel() // y.shape[1], w[0].numel(), w.shape[0]
+        ops = 2 * s8_products(x.shape, w.shape, y.shape, *args[:3])
+        nbytes = (x.numel() * x.element_size() + w.numel()
+                  + y.numel() * y.element_size())
+        b = bound(nbytes, s8_ops=ops)
+        ms = cuda_time(lambda: S8.conv_s8(x, qp, *args))
+        gms = graph_time(lambda: S8.conv_s8(x, qp, *args))
+        pms = cuda_time(lambda: S8.conv_s8_plain(x, qp, *args), iters=3,
+                        warmup=1)
+        wb = w.to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        cms = cuda_time(lambda: conv(xb, wb, None, *args))
+        lms = None
+        if M > 16 and K % 8 == 0 and Nc % 8 == 0 and args[3] == 1:
+            a = im2col_s8(S8.quantize_plain(x, qp["m_x"], qp["s_x"]),
+                          w.shape, *args[:3]).contiguous()
+            bt = qp["w_k"][0, :Nc, :K].t()
+            try:
+                lms = cuda_time(lambda: torch._int_mm(a, bt))
+            except RuntimeError as e:
+                log(f"  torch._int_mm refused {tuple(a.shape)} x "
+                    f"{tuple(bt.shape)}: {str(e).splitlines()[0]}")
+            del a
+        log(f"  {label} {calls}x x{list(key[0])} {key[2]} w{list(key[3])} "
+            f"s/p/d/g {key[4]}{' per-channel' if key[5] else ''}: "
+            f"kernel {ms:.4f} ms, graph {gms:.4f}, plain {pms:.4f}, "
+            f"cuDNN bf16 {cms:.4f}, _int_mm "
+            f"{'n/a' if lms is None else f'{lms:.4f}'}, bound {b[0]:.4f} "
+            f"({b[1]}), {ops / (gms * 1e9):.1f} TOP/s from the graph")
+        tot["ms"] += calls * ms
+        tot["graph_ms"] += calls * gms
+        tot["plain_ms"] += calls * pms
+        tot["cudnn_bf16_ms"] += calls * cms
+        tot["bound_ms"] += calls * b[0]
+        tot["bytes_ms"] += calls * 1e3 * nbytes / HBM_BPS
+        tot["ops_ms"] += calls * 1e3 * ops / INT8_TC_OPS
+        n_convs += calls
+        if lms is not None:
+            n_lib += calls
+            tot["library_ms"] += calls * lms
+            tot["library_kernel_ms"] += calls * ms
+    by = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+    e = entry(label, S8_SRC, S8_REPLACES, 0.0, 0.0, tot["ms"],
+              tot["plain_ms"], (tot["bound_ms"], by),
+              tot["library_ms"] if n_lib == n_convs else None)
+    e.update(graph_ms=tot["graph_ms"], cudnn_bf16_ms=tot["cudnn_bf16_ms"],
+             convs=n_convs, shapes=len(seen), library_convs=n_lib,
+             library_partial_ms=tot["library_ms"],
+             library_partial_kernel_ms=tot["library_kernel_ms"])
+    log(f"{label}: {n_convs} convs at {len(seen)} shapes, bit for bit; "
+        f"kernel {tot['ms']:.4f} ms per call, {tot['graph_ms']:.4f} from "
+        f"graphs; cuDNN bf16 {tot['cudnn_bf16_ms']:.4f}; bound "
+        f"{tot['bound_ms']:.4f} ({by}); torch._int_mm at {n_lib} of "
+        f"{n_convs}: {tot['library_ms']:.4f} ms against the kernel's "
+        f"{tot['library_kernel_ms']:.4f} there")
+    return e
+
+
+def check_conv_s8_grouped(dev):
+    """The kernel at a grouped shape (on no model path; JAX's
+    ``test_quantized_grouped_strided_conv``), bf16, per-tensor."""
+    import torch
+    from fbbev_tpu_torch.ops import conv_s8 as S8
+    shape, cout, k, st, g = S8_GROUPED
+    rng = np.random.RandomState(7)
+    w_q = torch.from_numpy(rng.randint(-127, 128, (cout, shape[1] // g, k, k))
+                           .astype(np.int8)).to(dev)
+    s_w = torch.from_numpy((rng.rand(cout) * 0.01 + 1e-3).astype(
+        np.float32)).to(dev)
+    s_x = torch.tensor(np.float32(0.03), device=dev)
+    qp = dict(w_q=w_q, s_w=s_w, s_x=s_x, m_x=None, scale=s_x * s_w,
+              b=torch.from_numpy(rng.randn(cout).astype(np.float32)).to(dev),
+              w_k=S8.pack_weight(w_q, g))
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    seen = {(shape, x.stride(), "bfloat16", tuple(w_q.shape),
+             (st, k // 2, 1, g), False): [x, qp, (st, k // 2, 1, g), 1]}
+    return check_conv_s8(dev, seen, "conv_s8_grouped")
+
+
+def int8_stream(pipe, imgs, label, per_frame):
+    """``imgs`` through ``pipe`` as :func:`config_stream`, counts checked
+    against ``per_frame`` launches a frame; (labels per frame on the CPU,
+    counts)."""
+    labels, counts = config_stream(pipe, imgs, label)
+    expect_counts(label, counts, len(imgs), per_frame)
+    return labels, counts
+
+
+def label_agreement(a, b):
+    """Per frame, the share of voxels whose labels agree."""
+    return [float((x == y).float().mean()) for x, y in zip(a, b)]
+
+
+def run_int8(dev):
+    """Int8 serving (phase 14): the JAX serving default on the card.
+
+    1. The flagship config (``fbocc-r50-cbgs_depth_16f.py``) built in
+       float32 (seeded random weights), its BatchNorm statistics warmed
+       up (3 train-mode passes over the first two frames, as the fidelity
+       tool's ``--bn-warmup``), folded, its float32 convs kept, cast to
+       bf16; ``FixedRigPipeline.enable_int8`` on the first two of 5
+       frames: exactly 70 quantized convs.
+    2. ``benchmark(iters=20)`` bf16, int8, int8, bf16, with peak memory;
+       then the 5 frames unquantized and int8: finite logits, valid
+       labels, exactly 70 int8 conv launches and K1-K4 once a frame;
+       label agreement with the bf16 stream >= 0.85.
+    3. The BEV side included (``exclude=DEFAULT_EXCLUDE``): 97 convs, 3
+       frames, exactly 100 int8 launches a frame (the occ head's
+       ``occ_pred_conv.0`` runs on each of its 4 levels).
+    4. The kernel bit for bit against its plain version at every distinct
+       shape of (1) and (3) and at a grouped shape, timed (entries
+       ``conv_s8``: the 70 launches of a frame; ``conv_s8_bev``: the 30
+       of the BEV side).
+    5. The tiny float32 config int8 on the card and on the CPU, the same
+       scales: labels agree on >= 0.999.
+    6. ``tools.serving_bench`` (int8 by default: 2 calibration frames,
+       then 70 int8 launches a frame) and ``tools.fidelity --int8
+       --bn-warmup 3`` on the flagship, their JSON lines.
+
+    Returns ([conv_s8, conv_s8_bev entries], launches of the int8
+    stream, of the BEV stream)."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.tools import fidelity, serving_bench
+    from fbbev_tpu_torch.train.loop import build_model
+    from fbbev_tpu_torch.utils import quantize as Q
+    from fbbev_tpu_torch.utils.fuse_bn import float32_conv_state, \
+        fold_batch_norms
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    log(f"conv_s8.cu ptxas: {lib_ptxas('conv_s8')}")
+    flagship = os.path.join(CONFIGS, "fbocc-r50-cbgs_depth_16f.py")
+    cfg = Config.fromfile(flagship)
+    cam = flagship_rig()
+    g = torch.Generator().manual_seed(11)
+    imgs = [torch.randn(1, 6, 256, 704, 3, generator=g).to(dev)
+            for _ in range(INT8_FRAMES)]
+    rts = [flow(0 if i == 0 else 1) for i in range(INT8_FRAMES)]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(0))
+    fidelity.warm_batch_norms(model, [rig_batch(cam, imgs[i], i == 0,
+                                                rts[i]) for i in range(2)],
+                              3)
+    fold_batch_norms(model)
+    model.float32_state = float32_conv_state(model)
+    model.cast(torch.bfloat16)
+    pipe = FixedRigPipeline(model, cam)
+    metas = [dict(start_of_sequence=i == 0, curr_to_prev_ego_rt=rts[i])
+             for i in range(2)]
+    log(f"int8: flagship built, BatchNorms warmed up (3 passes), folded, "
+        f"cast to bf16 in {time.perf_counter() - t0:.1f} s")
+
+    # 1. calibration
+    t0 = time.perf_counter()
+    qp = pipe.enable_int8(imgs[:2], metas)
+    torch.cuda.synchronize()
+    log(f"int8: enable_int8 on 2 frames in {time.perf_counter() - t0:.2f} "
+        f"s: {len(pipe._int8_scales)} convs calibrated, {len(qp)} quantized")
+    if len(qp) != 70 or len(pipe._int8_scales) != 99:
+        raise AssertionError(f"{len(qp)} int8 convs of "
+                             f"{len(pipe._int8_scales)}; expected 70 of 99")
+    qparams = pipe.qparams
+
+    # 2. the benchmark, bf16 and int8 in turns (before the streams below
+    # keep copies of the int8 convs' inputs)
+    res = {"bf16": [], "int8": []}
+    for mode in ("bf16", "int8", "int8", "bf16"):
+        pipe.qparams = qparams if mode == "int8" else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fps = pipe.benchmark(iters=20)
+        res[mode].append((1e3 / fps, torch.cuda.max_memory_allocated()
+                          / 2 ** 30))
+    for mode, r in res.items():
+        log(f"int8: FixedRigPipeline.benchmark(iters=20), folded flagship "
+            f"{mode}: {[round(ms, 4) for ms, _ in r]} ms per frame, peak "
+            f"{max(p for _, p in r):.3f} GiB ({card})")
+
+    pipe.qparams = None
+    bf16_labels, _ = int8_stream(pipe, imgs, "int8 phase bf16",
+                                 PER_FRAME["default"])
+    pipe.qparams = qparams
+    (int8_labels, counts), seen = s8_recorded(
+        lambda: int8_stream(pipe, imgs, "int8 phase int8",
+                            PER_FRAME["int8"]))
+    for lab in int8_labels:
+        if tuple(lab.shape) != (1, 200, 200, 16) or int(lab.min()) < 0 \
+                or int(lab.max()) >= 19:
+            raise AssertionError(f"int8 labels {tuple(lab.shape)} "
+                                 f"{int(lab.min())}..{int(lab.max())}")
+    agree = label_agreement(int8_labels, bf16_labels)
+    log(f"int8: label agreement int8 vs bf16 per frame "
+        f"{[round(a, 5) for a in agree]}, min {min(agree):.5f} (held >= "
+        f"{INT8_AGREE})")
+    if min(agree) < INT8_AGREE:
+        raise AssertionError(f"int8 and bf16 labels agree on {agree}")
+
+    # 3. the BEV side included
+    qp_bev = pipe.enable_int8(imgs[:2], metas, exclude=Q.DEFAULT_EXCLUDE)
+    if len(qp_bev) != 97:
+        raise AssertionError(f"{len(qp_bev)} int8 convs with the BEV side")
+    (bev_labels, bev_counts), seen_bev = s8_recorded(
+        lambda: int8_stream(pipe, imgs[:INT8_BEV_FRAMES], "int8 BEV side",
+                            PER_FRAME["int8_bev"]))
+    bev_agree = label_agreement(bev_labels, bf16_labels)
+    log(f"int8: BEV side included, 97 convs, 100 launches a frame: label "
+        f"agreement with bf16 per frame {[round(a, 5) for a in bev_agree]}")
+    del pipe, model, qparams, qp, qp_bev
+    torch.cuda.empty_cache()
+
+    # 4. the kernel at every distinct shape
+    trunk = {k: v for k, v in seen.items()}
+    for k, v in seen_bev.items():
+        v[3] //= INT8_BEV_FRAMES
+    for k in trunk:
+        trunk[k][3] //= INT8_FRAMES
+    bev_only = {k: v for k, v in seen_bev.items() if len(k[0]) == 5}
+    kernels = [check_conv_s8(dev, trunk, "conv_s8"),
+               check_conv_s8(dev, bev_only, "conv_s8_bev")]
+    if (kernels[0]["convs"], kernels[1]["convs"]) != (70, 30):
+        raise AssertionError(f"recorded {kernels[0]['convs']} and "
+                             f"{kernels[1]['convs']} convs a frame")
+    check_conv_s8_grouped(dev)
+    del seen, seen_bev, trunk, bev_only
+    torch.cuda.empty_cache()
+
+    # 5. the tiny float32 config, card against CPU, the same scales
+    tiny = Config.fromfile(os.path.join(CONFIGS,
+                                        "fbocc-r50-tiny_synthetic.py"))
+    g = torch.Generator().manual_seed(6)
+    frames = [torch.randn(1, 2, 64, 176, 3, generator=g) for _ in range(3)]
+    out, scales = {}, None
+    for d in ("cpu", dev):
+        m = build_model(tiny, device=d,
+                        generator=torch.Generator().manual_seed(5))
+        pipe = FixedRigPipeline(m, flagship_rig(N=2, H=64, W=176))
+        if scales is None:
+            pipe.enable_int8(frames[:2], [
+                dict(start_of_sequence=i == 0,
+                     curr_to_prev_ego_rt=flow(0 if i == 0 else 1))
+                for i in range(2)])
+            scales, n_q = pipe._int8_scales, len(pipe.qparams)
+            out[d] = [pipe(f, i == 0, flow(0 if i == 0 else 1))
+                      for i, f in enumerate(frames)]
+        else:
+            pipe.qparams = Q.build_qparams(m, scales)
+            out[d], c = config_stream(pipe, [f.to(d) for f in frames],
+                                      "int8 tiny (float32)")
+            expect_counts("int8 tiny", c, 3, dict(PER_FRAME["f32"],
+                                                  conv_s8=n_q))
+    agree = min(label_agreement(out["cpu"], out[dev]))
+    log(f"int8: tiny config (float32) int8, {n_q} convs, card vs CPU: label "
+        f"agreement {agree:.5f} (min over 3 frames; held >= "
+        f"{INT8_TINY_AGREE})")
+    if agree < INT8_TINY_AGREE:
+        raise AssertionError(f"tiny int8: card and CPU disagree: {agree}")
+    del pipe, m
+
+    # 6. the tools
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        line = serving_bench.main([flagship, "--chunk", "4", "--rounds", "2",
+                                   "--scales", os.path.join(tmp, "s.json")])
+        torch.cuda.synchronize()
+        c = read_counts()
+    log(f"int8: serving_bench (int8 default) in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(line)} ({card}); "
+        f"launches {c}")
+    want = {k: 14 * v for k, v in PER_FRAME["default"].items()}
+    want["conv_s8"] = 12 * 70
+    expect_counts("serving_bench int8", c, 1, want)
+    if line["int8"] is not True:
+        raise AssertionError(f"serving_bench served {line}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = fidelity.main(["--int8", "--bn-warmup", "3"])
+    for ln in buf.getvalue().strip().splitlines():
+        log(f"int8: fidelity {ln}")
+    log(f"int8: fidelity --int8 --bn-warmup 3 (flagship, 4 frames) in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    if json.loads(buf.getvalue().splitlines()[0]) != {
+            "int8_quantized_convs": 70} or len(rep["frames"]) != 4:
+        raise AssertionError(f"fidelity reported {rep}")
+    torch.cuda.empty_cache()
+    log(f"int8 phase: {time.perf_counter() - t_phase:.1f} s")
+    return kernels, counts, bev_counts
 
 
 SMOKE = "fbocc-r50_synthetic_smoke.py"
@@ -2455,8 +2901,8 @@ def run_vov(dev):
     from fbbev_tpu_torch.serving import FixedRigPipeline
     from fbbev_tpu_torch.train import Trainer
     from fbbev_tpu_torch.train.loop import build_model
-    from fbbev_tpu_torch.utils.fuse_bn import fold_batch_norms, \
-        perturb_batch_norms
+    from fbbev_tpu_torch.utils.fuse_bn import float32_conv_state, \
+        fold_batch_norms, perturb_batch_norms
     t_phase = time.perf_counter()
     card = nvidia_smi_line()
     bf16 = torch.bfloat16
@@ -2475,6 +2921,7 @@ def run_vov(dev):
     perturb_batch_norms(unfolded, torch.Generator().manual_seed(3))
     folded = copy.deepcopy(unfolded)
     pairs = fold_batch_norms(folded)
+    folded.float32_state = float32_conv_state(folded)
     n_params = sum(p.numel() for p in folded.parameters())
     n_bb = sum(p.numel() for p in folded.img_backbone.parameters())
     log(f"vov: {VOV} built ({n_params} parameters, {n_bb} of them the "
@@ -2542,7 +2989,42 @@ def run_vov(dev):
     log(f"vov: FixedRigPipeline.benchmark(iters=20), folded bf16 "
         f"VoVNet-99 6x512x1408: {fps:.4f} frames/s, {1e3 / fps:.4f} ms per "
         f"frame, peak device memory {peak_serve:.2f} GiB ({card})")
-    del folded_pipe, folded
+
+    # 2b. served int8: calibrated on 2 frames, the benchmark, 3 frames
+    n_pred = vov_int8_prediction(folded)
+    t0 = time.perf_counter()
+    qp = folded_pipe.enable_int8(imgs[:2], [
+        dict(start_of_sequence=i == 0,
+             curr_to_prev_ego_rt=flow(0 if i == 0 else 1)) for i in range(2)])
+    torch.cuda.synchronize()
+    log(f"vov: enable_int8 in {time.perf_counter() - t0:.2f} s: "
+        f"{len(folded_pipe._int8_scales)} convs calibrated, {len(qp)} "
+        f"quantized (predicted {n_pred})")
+    if len(qp) != n_pred:
+        raise AssertionError(f"vov int8: {len(qp)} convs, predicted "
+                             f"{n_pred}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fps8 = folded_pipe.benchmark(iters=20)
+    peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"vov: FixedRigPipeline.benchmark(iters=20), folded VoVNet-99 int8: "
+        f"{fps8:.4f} frames/s, {1e3 / fps8:.4f} ms per frame (bf16 "
+        f"{1e3 / fps:.4f}), peak device memory {peak8:.2f} GiB ({card})")
+    (int8_labels, int8_counts), seen = s8_recorded(lambda: int8_stream(
+        folded_pipe, imgs[:3], "vov folded int8",
+        dict(PER_FRAME["default"], conv_s8=n_pred)))
+    agree8 = label_agreement(int8_labels, labels["folded bfloat16"])
+    log(f"vov: label agreement int8 vs bf16 per frame "
+        f"{[round(a, 5) for a in agree8]}")
+    del folded_pipe, folded, qp
+    torch.cuda.empty_cache()
+    for v in seen.values():
+        v[3] //= 3
+    vov_s8 = check_conv_s8(dev, seen, "vov_conv_s8")
+    vov_s8["launches"] = int8_counts["conv_s8"]
+    if vov_s8["convs"] != n_pred:
+        raise AssertionError(f"vov int8: {vov_s8['convs']} convs a frame")
+    del seen
     torch.cuda.empty_cache()
 
     # 3. K2 and K3 at this config's shapes
@@ -2688,7 +3170,20 @@ def run_vov(dev):
         raise AssertionError(f"tiny V-19 config: card and CPU disagree: "
                              f"{agree}")
     log(f"vov phase: {time.perf_counter() - t_phase:.1f} s")
-    return stream_counts, train_counts, kernels, k7
+    return stream_counts, train_counts, kernels + [vov_s8], k7
+
+
+def vov_int8_prediction(model):
+    """The int8 convs of an FBOCC served with the default exclusions, from
+    its modules: every conv of the image backbone, the neck and the depth
+    net, less the depth net's SE gates' four (held, never called: dense
+    layers in JAX) and its final 1x1 conv (excluded)."""
+    import torch
+    names = [n for part in ("img_backbone", "img_neck", "depth_net")
+             for n, m in getattr(model, part).named_modules(prefix=part)
+             if isinstance(m, torch.nn.Conv2d)]
+    return sum(1 for n in names
+               if "_se." not in n and n != "depth_net.depth_conv.4")
 
 
 def profile_vov(dev, frames=5):
@@ -2818,7 +3313,7 @@ def profile_frames(pipe, imgs, frames, ours, label):
 # name fragments of the port's own kernels in a profile
 PORT_KERNELS = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
                 "fuse_warp_epi", "warp_box_kernel", "conv3d_", "split_sum",
-                "occ_")
+                "occ_", "conv_s8_kernel")
 
 
 def profile_images(dev):
@@ -2842,6 +3337,31 @@ def profile_default(dev, frames=5):
     pipe(imgs[0], True)
     profile_frames(pipe, imgs, frames, PORT_KERNELS,
                    "default {} cudnn.benchmark=False")
+
+
+def profile_int8(dev, frames=5):
+    """``--profile-int8``: the folded flagship config (``build_folded``)
+    with ``enable_int8`` on two frames, profiled as :func:`profile` does
+    the default stream, int8 then bf16 (the same pipeline, ``qparams``
+    unset) then int8 again."""
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.utils.fuse_bn import build_folded
+    imgs = profile_images(dev)
+    cfg = Config.fromfile(os.path.join(CONFIGS,
+                                       "fbocc-r50-cbgs_depth_16f.py"))
+    pipe = FixedRigPipeline(build_folded(
+        cfg, device=dev, generator=torch.Generator().manual_seed(0)),
+        flagship_rig())
+    qparams = pipe.enable_int8(imgs[:2], [
+        dict(start_of_sequence=True),
+        dict(start_of_sequence=False, curr_to_prev_ego_rt=flow(1))])
+    pipe(imgs[0], True)
+    for mode in ("int8", "bf16", "int8"):
+        pipe.qparams = qparams if mode == "int8" else None
+        profile_frames(pipe, imgs, frames, PORT_KERNELS,
+                       f"folded flagship {mode}")
 
 
 def profile_occ(dev, frames=5):
@@ -3166,6 +3686,9 @@ def main():
     if "--profile-vov" in sys.argv[1:]:
         profile_vov(dev)
         return 0
+    if "--profile-int8" in sys.argv[1:]:
+        profile_int8(dev)
+        return 0
     if "--k1" in sys.argv[1:]:
         # K1 (both variants) and K5 alone, for iterating on them: their
         # ptxas lines, then K5's plan sweep
@@ -3211,6 +3734,11 @@ def main():
         run_vov(dev)
         log(f"chip_smoke --vov: {time.perf_counter() - T0:.1f} s")
         return 0
+    if "--int8" in sys.argv[1:]:
+        # int8 serving alone (run_int8)
+        run_int8(dev)
+        log(f"chip_smoke --int8: {time.perf_counter() - T0:.1f} s")
+        return 0
     if "--config" in sys.argv[1:]:
         # the config-built entry alone (run_config)
         run_config(dev)
@@ -3255,6 +3783,11 @@ def main():
     for k in k7:
         k["launches"] = train_counts[k["name"]]
     k1_t1, k1_f32 = run_config(dev)
+    s8, int8_counts, int8_bev_counts = run_int8(dev)
+    for k in kernels:
+        k["int8_launches"] = int8_counts[k["name"]]
+    s8[0]["launches"] = int8_counts["conv_s8"]
+    s8[1]["launches"] = int8_bev_counts["conv_s8"]
     loop_train, loop_eval = run_loop(dev)
     for k in kernels:
         k["loop_launches"] = loop_eval[k["name"]]
@@ -3271,7 +3804,7 @@ def main():
     vov_stream, vov_train, vov_kernels, vov_k7 = run_vov(dev)
     for k in kernels:
         k["vov_launches"] = vov_stream[k["name"]]
-    for k in vov_kernels:
+    for k in vov_kernels[:-1]:  # the last, vov_conv_s8, counted int8
         k["launches"] = vov_stream[k["name"][len("vov_"):]]
     for k in vov_k7:
         k["launches"] = vov_train[k["name"][len("vov_"):]]
@@ -3281,7 +3814,7 @@ def main():
                       t1_max_abs_err=k1_t1["max_abs_err"])
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": kernels + [k1_f32] + k7 + routed + [k10]
-                    + vov_kernels + vov_k7}))
+                    + s8 + vov_kernels + vov_k7}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

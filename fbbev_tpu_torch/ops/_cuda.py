@@ -20,7 +20,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-KERNELS = ("bev_pool", "msda", "fuse_warp", "conv3x3", "occ_tail", "conv3d")
+KERNELS = ("bev_pool", "msda", "fuse_warp", "conv3x3", "occ_tail", "conv3d",
+           "conv_s8")
 # --fmad=false keeps every float expression as separately rounded
 # multiplies and adds, the rounding of the plain PyTorch versions
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,7 +14,10 @@ model's route arguments add others: with ``fuse_warp=False`` the history
 stays age-ordered (same shape, other slot order) and K5 warps it in place
 of K1; ``pallas_conv3d`` runs the stride-1 3x3x3 convs on K6;
 ``occ_tail`` and ``occ_fuse`` run the occ head's tail on K8 or its blend
-on K9.
+on K9.  :meth:`FixedRigPipeline.enable_int8` (or ``qparams`` set from
+cached scales) serves the image trunk's convs in int8 on the int8 conv
+kernel (``ops/conv_s8.py``), the JAX serving default; unset, the pipeline
+serves in the model's dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from fbbev_tpu_torch.models.fbocc import FBOCC, TemporalState, \
     init_temporal_state
 from fbbev_tpu_torch.ops.pallas_pool import lss_voxel_pool_planned, \
     plan_pool
+from fbbev_tpu_torch.utils import quantize as Q
 
 
 def stage(name: str):
@@ -74,6 +78,21 @@ class FixedRigPipeline:
             B, self.grid, model.history_cat_num,
             model.single_bev_num_channels, dtype=model.dtype,
             device=self.device)
+        self.qparams = None
+        self._int8_scales = None
+
+    @property
+    def qparams(self):
+        """int8 parameters of the quantized convs
+        (``quantize.build_qparams``); None serves in the model's dtype.
+        Setting it swaps the convs' forwards once
+        (``quantize.set_quantized``)."""
+        return self._qparams
+
+    @qparams.setter
+    def qparams(self, qparams):
+        Q.set_quantized(self.model, qparams)
+        self._qparams = qparams
 
     @torch.no_grad()
     def _fwd(self, imgs: torch.Tensor, meta: dict, state: TemporalState):
@@ -102,21 +121,46 @@ class FixedRigPipeline:
             labels = mdl.occupancy_head(vox)
         return labels, new_state
 
-    def __call__(self, imgs, start_of_sequence: bool,
-                 curr_to_prev_ego_rt: Optional[np.ndarray] = None):
-        """One streaming step.  imgs (B, N, H, W, 3) normalised; returns
-        (B, Y, X, Z) occupancy labels on the device."""
+    def meta(self, start_of_sequence: bool,
+             curr_to_prev_ego_rt: Optional[np.ndarray] = None) -> dict:
+        """The temporal meta of one step on the device; the identity ego
+        motion when ``curr_to_prev_ego_rt`` is None."""
         B, dev = self.batch, self.device
         rt = (np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
               if curr_to_prev_ego_rt is None else curr_to_prev_ego_rt)
-        meta = dict(
+        return dict(
             start_of_sequence=torch.full((B,), bool(start_of_sequence),
                                          device=dev),
             sequence_group_idx=torch.zeros(B, dtype=torch.int32, device=dev),
             curr_to_prev_ego_rt=torch.as_tensor(
                 np.asarray(rt, np.float32)).to(dev))
-        labels, self.state = self._fwd(torch.as_tensor(imgs).to(dev), meta,
-                                       self.state)
+
+    def enable_int8(self, calib_frames, calib_metas, exclude=None):
+        """Static int8 PTQ of the serving convs, as the JAX
+        ``enable_int8``: calibrate activation statistics over the given
+        frames (on a copy of the temporal state), quantize the conv weights
+        per output channel on the host from float32 weights
+        (``quantize.float32_weights``), and run the quantized convs on the
+        int8 conv kernel in every later :meth:`__call__`.
+        ``calib_frames``: (B, N, H, W, 3) images; ``calib_metas``: dicts of
+        ``start_of_sequence`` and optionally ``curr_to_prev_ego_rt``.
+        ``exclude`` as ``quantize.build_qparams`` (default: the image trunk
+        only); the other choices of the scheme are ``quantize``'s keyword
+        arguments.  Returns the qparams; the calibration stays in
+        ``_int8_scales`` (a reusable artifact)."""
+        scales = Q.calibrate_serving(self, calib_frames, calib_metas)
+        self._int8_scales = scales
+        self.qparams = Q.build_qparams(self.model, scales, exclude=exclude)
+        return self.qparams
+
+    def __call__(self, imgs, start_of_sequence: bool,
+                 curr_to_prev_ego_rt: Optional[np.ndarray] = None):
+        """One streaming step.  imgs (B, N, H, W, 3) normalised; returns
+        (B, Y, X, Z) occupancy labels on the device.  The convs in
+        ``qparams`` run in int8."""
+        meta = self.meta(start_of_sequence, curr_to_prev_ego_rt)
+        labels, self.state = self._fwd(
+            torch.as_tensor(imgs).to(self.device), meta, self.state)
         return labels
 
     def benchmark(self, iters: int = 20,

@@ -6,14 +6,18 @@ The rig-static index math is hoisted out of the measured frames (the
 pipeline's construction); each frame is one streaming step that carries
 the temporal state.  ``--chunk`` staged frames make a round, one device
 sync ends it; after a first round (which builds the kernels) ``--rounds``
-rounds are timed on the host clock.  Serves in the config's dtype: the
-int8 engine of the JAX tool is ROADMAP M13 (``"int8": false``).  Prints
-one JSON line.
+rounds are timed on the host clock.  Serves int8 by default, as the JAX
+tool: the image trunk's convs calibrated on the first two frames
+(``FixedRigPipeline.enable_int8``) and run on the int8 conv kernel, the
+scales cached in a JSON file under ``quantize.code_cache_key`` (``--scales``
+names it; reused while the key matches); ``--no-int8`` serves in the
+config's dtype.  Prints one JSON line.
 
 Usage:
     python -m fbbev_tpu_torch.tools.serving_bench \\
         fbbev_tpu_torch/configs/fbocc-r50-cbgs_depth_16f.py
     python -m fbbev_tpu_torch.tools.serving_bench <config> --device cpu
+    python -m fbbev_tpu_torch.tools.serving_bench <config> --no-int8
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -65,10 +70,16 @@ def main(argv=None):
                    help="frames per round, one device sync at its end")
     p.add_argument("--rounds", type=int, default=2)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--no-int8", action="store_true",
+                   help="serve in the config's dtype, no int8 convs")
+    p.add_argument("--scales", default=None,
+                   help="JSON file of cached int8 scales (default: one per "
+                        "config in the temporary directory)")
     args = p.parse_args(argv)
 
     from fbbev_tpu_torch.config import Config
     from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.utils import quantize as Q
     from fbbev_tpu_torch.utils.fuse_bn import build_folded
 
     dev = torch.device(args.device)
@@ -81,6 +92,29 @@ def main(argv=None):
     pipe = FixedRigPipeline(model, fixed_rig(N, H, W, B))
     staged = [frame(i + 1, B, N, H, W, dev) for i in range(4)]
     frames = staged * max(1, args.chunk // len(staged))
+    if not args.no_int8:
+        # calibrated on a sequence start and the first staged frame, as
+        # the JAX tool; the scales reused while their key matches
+        key = Q.code_cache_key(tag, (H, W), int(cfg.get("seed", 0)))
+        path = args.scales or os.path.join(
+            tempfile.gettempdir(), f"fbbev_torch_int8_scales_{tag}.json")
+        scales = None
+        if os.path.exists(path):
+            with open(path) as f:
+                data = json.load(f)
+            if data.get("key") == key:
+                scales = Q.scales_from_json(data["scales"])
+        if scales is not None:
+            pipe.qparams = Q.build_qparams(model, scales)
+        else:
+            calib = [frame(0, B, N, H, W, dev), staged[0]]
+            pipe.enable_int8(
+                [im for im, _ in calib],
+                [dict(start_of_sequence=i == 0, curr_to_prev_ego_rt=rt)
+                 for i, (_, rt) in enumerate(calib)])
+            with open(path, "w") as f:
+                json.dump({"key": key, "scales": Q.scales_to_json(
+                    pipe._int8_scales)}, f)
 
     def round_():
         for imgs, rt in frames:
@@ -98,7 +132,7 @@ def main(argv=None):
         "value": round(B / dt, 2),
         "unit": f"{N}-cam frames/sec/chip",
         "latency_ms": round(dt * 1e3, 2),
-        "int8": False,
+        "int8": not args.no_int8,
     }
     print(json.dumps(line), flush=True)
     return line

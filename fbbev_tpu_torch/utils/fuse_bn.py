@@ -81,7 +81,10 @@ def perturb_batch_norms(model: torch.nn.Module,
 def build_folded(cfg, device="cuda", generator=None, **routes):
     """``train.loop.build_model(cfg)`` for serving: built in float32, its
     BatchNorms folded, then cast to the config's dtype (what the JAX tools
-    serve: ``fold_batch_norms`` of the float32 variables)."""
+    serve: ``fold_batch_norms`` of the float32 variables).  The folded
+    float32 weights and biases of its convs stay on the host as
+    ``model.float32_state``: int8 weights are quantized from them, as JAX
+    quantizes its float32 parameters (``utils/quantize.py``)."""
     from fbbev_tpu_torch.models.builder import detector_kwargs
     from fbbev_tpu_torch.train.loop import build_model
     model_cfg = (cfg.model.to_dict() if hasattr(cfg.model, "to_dict")
@@ -91,4 +94,14 @@ def build_folded(cfg, device="cuda", generator=None, **routes):
     model = build_model(cfg, device=device, generator=generator,
                         dtype=torch.float32, **routes)
     fold_batch_norms(model)
+    model.float32_state = float32_conv_state(model)
     return model.cast(dtype)
+
+
+def float32_conv_state(model: torch.nn.Module):
+    """{``<conv>.weight`` / ``<conv>.bias``: a float32 copy on the host}
+    of every ``nn.Conv2d`` / ``nn.Conv3d`` of ``model``."""
+    return {f"{n}.{k}": t.detach().to("cpu", torch.float32, copy=True)
+            for n, m in model.named_modules()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))
+            for k, t in m.named_parameters(recurse=False)}

@@ -574,3 +574,17 @@ def conv_bn_pairs(model: torch.nn.Module) -> List[Tuple[str, str]]:
         if conv in names and bn in names:
             pairs.append((conv, bn))
     return pairs
+
+
+def conv_paths(model: torch.nn.Module) -> Dict[str, str]:
+    """{port conv module name: its JAX module path} of an FBOCC, e.g.
+    ``depth_net.depth_conv.4`` -> ``depth_net/depth_conv`` and
+    ``depth_net.depth_conv.3.aspp1.atrous_conv`` ->
+    ``depth_net/aspp/aspp1/conv``: the JAX package's regexes over module
+    paths (the int8 exclusions) read the JAX path.  From the same rules as
+    the weights; convs that no rule names are absent."""
+    f = _PairFinder()
+    _rules(f, _model_spec(model))
+    names = dict(model.named_modules())
+    return {src: "/".join(dst) for dst, src in f.convs.items()
+            if src in names}

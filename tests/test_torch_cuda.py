@@ -1002,3 +1002,137 @@ def test_dcnv3_on_card_matches_cpu(dev):
                                atol=1e-5)
     for a, b in zip(res[dev][1:], res["cpu"][1:]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _s8_params(rng, cin, cout, ks, groups, dev, per_channel, bias=True):
+    """Random int8 parameters of one conv on ``dev``, packed."""
+    from fbbev_tpu_torch.ops import conv_s8
+    w_q = torch.from_numpy(rng.randint(-127, 128, (cout, cin // groups)
+                                       + ks).astype(np.int8))
+    s_w = torch.from_numpy((rng.rand(cout) * 0.01 + 1e-3)
+                           .astype(np.float32))
+    s_x = torch.tensor(np.float32(0.02))
+    qp = {"w_q": w_q, "s_w": s_w, "s_x": s_x,
+          "m_x": (torch.from_numpy((rng.rand(cin) * 60 + 10)
+                                   .astype(np.float32))
+                  if per_channel else None),
+          "b": (torch.from_numpy(rng.randn(cout).astype(np.float32))
+                if bias else None),
+          "scale": s_x * s_w}
+    qp = {k: None if v is None else v.to(dev) for k, v in qp.items()}
+    qp["w_k"] = conv_s8.pack_weight(qp["w_q"], groups)
+    return qp
+
+
+# (x shape, cout, kernel, stride, padding, dilation, groups, channels-last)
+S8_CASES = {
+    "stem_7x7_s2": ((2, 3, 40, 56), 64, (7, 7), 2, 3, 1, 1, False),
+    "1x1_s2": ((2, 64, 20, 24), 96, (1, 1), 2, 0, 1, 1, False),
+    "3x3_s2": ((2, 64, 20, 24), 48, (3, 3), 2, 1, 1, 1, False),
+    "dil18_16rows": ((2, 64, 16, 44), 72, (3, 3), 1, 18, 18, 1, False),
+    "gap_m6": ((6, 512, 1, 1), 128, (1, 1), 1, 0, 1, 1, False),
+    "grouped": ((2, 64, 9, 9), 64, (3, 3), 2, 1, 1, 2, False),
+    "nhwc_3x3": ((2, 96, 12, 20), 130, (3, 3), 1, 1, 1, 1, True),
+    "3d_s1": ((1, 32, 10, 10, 4), 48, (3, 3, 3), 1, 1, 1, 1, True),
+    "3d_s2": ((1, 32, 10, 10, 4), 64, (3, 3, 3), 2, 1, 1, 1, False),
+    "3d_1x1x1": ((1, 40, 6, 6, 4), 24, (1, 1, 1), 1, 0, 1, 1, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(S8_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_conv_s8_kernel_equals_plain(dev, case, dtype, per_channel):
+    """The int8 conv kernel bit for bit against its plain version: the
+    int32 sums and the outputs, in x's memory format."""
+    from fbbev_tpu_torch.ops import conv_s8
+    shape, cout, ks, st, pd, dl, groups, cl = S8_CASES[case]
+    if groups > 1 and per_channel:
+        pytest.skip("a grouped conv takes the per-tensor path")
+    rng = np.random.RandomState(len(case))
+    qp = _s8_params(rng, shape[1], cout, ks, groups, dev, per_channel)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3).to(
+        dev, dtype)
+    if cl:
+        x = x.contiguous(memory_format=torch.channels_last if x.dim() == 4
+                         else torch.channels_last_3d)
+    before = conv_s8.launches
+    y, acc = conv_s8.conv_s8(x, qp, st, pd, dl, groups, return_sums=True)
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    want, want_acc = conv_s8.conv_s8_plain(x, qp, st, pd, dl, groups,
+                                           return_sums=True)
+    assert y.dtype == dtype and y.shape == want.shape
+    fmt = ((torch.channels_last if x.dim() == 4 else torch.channels_last_3d)
+           if cl else torch.contiguous_format)
+    assert y.is_contiguous(memory_format=fmt)
+    assert torch.equal(acc, want_acc)
+    assert torch.equal(y, want)
+
+
+def test_conv_s8_refuses_what_it_does_not_take(dev):
+    from fbbev_tpu_torch.ops import conv_s8
+    rng = np.random.RandomState(0)
+    qp = _s8_params(rng, 8, 8, (3, 3), 1, dev, True)
+    x = torch.randn(1, 8, 5, 5, device=dev)
+    with pytest.raises(ValueError):
+        conv_s8.conv_s8(x.double(), qp, 1, 1, 1, 1)
+    with pytest.raises(ValueError):
+        conv_s8.conv_s8(x[:, :4], qp, 1, 1, 1, 1)
+    with pytest.raises(ValueError):
+        conv_s8.conv_s8(x, {k: v for k, v in qp.items() if k != "w_k"},
+                        1, 1, 1, 1)
+
+
+def test_flagship_int8_stream_on_card(dev):
+    """The flagship (bf16, folded, random weights) with ``enable_int8`` on
+    two frames: 70 quantized convs; a 3-frame stream with exactly 70 int8
+    conv launches and K1-K4 once a frame; and the kernel bit for bit
+    against its plain version at every distinct shape the stream gave
+    it."""
+    import os
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.ops import conv_s8
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.tools.serving_bench import fixed_rig, frame
+    from fbbev_tpu_torch.utils.fuse_bn import build_folded
+    cfg = Config.fromfile(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "fbbev_tpu_torch", "configs", "fbocc-r50-cbgs_depth_16f.py"))
+    model = build_folded(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    pipe = FixedRigPipeline(model, fixed_rig(6, 256, 704))
+    frames = [frame(i, 1, 6, 256, 704, dev) for i in range(5)]
+    qp = pipe.enable_int8([f[0] for f in frames[:2]],
+                          [dict(start_of_sequence=i == 0,
+                                curr_to_prev_ego_rt=f[1])
+                           for i, f in enumerate(frames[:2])])
+    assert len(qp) == 70
+    seen, real = {}, conv_s8.conv_s8
+
+    def record(x, q, *args):
+        key = (tuple(x.shape), x.stride(), tuple(q["w_q"].shape), args)
+        seen.setdefault(key, (x.clone(), q, args))
+        return real(x, q, *args)
+
+    counts = (conv_s8.launches, K1.launches, K2.launches, K3.launches,
+              K3.selfattn_launches)
+    conv_s8.conv_s8 = record
+    try:
+        for i, (im, rt) in enumerate(frames[2:]):
+            labels = pipe(im, i == 0, rt)
+    finally:
+        conv_s8.conv_s8 = real
+    torch.cuda.synchronize()
+    got = (conv_s8.launches, K1.launches, K2.launches, K3.launches,
+           K3.selfattn_launches)
+    assert tuple(b - a for a, b in zip(counts, got)) == (210, 3, 3, 3, 3)
+    assert labels.shape == (1, 200, 200, 16)
+    assert int(labels.max()) < 19 and int(labels.min()) >= 0
+    for key, (x, q, args) in seen.items():
+        y, acc = real(x, q, *args, return_sums=True)
+        want, want_acc = conv_s8.conv_s8_plain(x, q, *args,
+                                               return_sums=True)
+        assert torch.equal(acc, want_acc), key
+        assert torch.equal(y, want), key

@@ -22,16 +22,21 @@ def _line(capsys):
     return json.loads(out[0])
 
 
-def test_serving_bench_prints_its_line(capsys):
+@pytest.mark.parametrize("int8", [True, False])
+def test_serving_bench_prints_its_line(capsys, tmp_path, int8):
+    """int8 by default, as the JAX tool; ``--no-int8`` serves float."""
     from fbbev_tpu_torch.tools import serving_bench
     ret = serving_bench.main([TINY, "--device", "cpu", "--chunk", "4",
-                              "--rounds", "1"])
+                              "--rounds", "1", "--scales",
+                              str(tmp_path / "scales.json")]
+                             + ([] if int8 else ["--no-int8"]))
     line = _line(capsys)
     assert line == ret
     assert sorted(line) == ["int8", "latency_ms", "metric", "unit", "value"]
     assert line["metric"] == "fbocc-r50-tiny_synthetic_serving_fps_per_chip"
     assert line["unit"] == "2-cam frames/sec/chip"
-    assert line["int8"] is False
+    assert line["int8"] is int8
+    assert os.path.exists(tmp_path / "scales.json") == int8
     assert line["value"] > 0 and line["latency_ms"] > 0
 
 
