@@ -110,7 +110,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
     int32 sums and outputs) at every distinct shape of those streams and
     a grouped one, timed per call, from a CUDA graph, beside its plain
     version, ``torch._int_mm`` on a prebuilt im2col, cuDNN's bf16 conv
-    and its bound; the tiny float32 config int8 card vs CPU (>= 0.999);
+    and its bound, with its plan and its quantize pass's time; the tiny float32 config int8 card vs CPU (>= 0.999);
     ``tools.serving_bench`` (int8 by default) and ``tools.fidelity --int8
     --bn-warmup 3``.  Adds the entries ``conv_s8`` and ``conv_s8_bev``
     and ``int8_launches`` to K1-K4's.
@@ -134,7 +134,9 @@ every tile plan of K6's and K7's bf16 kernels at their flagship shapes.
 ``--config`` runs the config phase (10.) alone, ``--loop`` the loop
 phase (11.), ``--det`` the detection phase (12.), ``--vov`` the backbones
 phase (13.), ``--int8`` the int8 phase (14., with ``conv_s8.cu``'s ptxas
-lines).
+lines); ``--s8-plans`` times the int8 conv's candidate plans at every
+conv of a flagship and a VoVNet-99 int8 frame, each held bit for bit,
+and fits ``conv_s8``'s plan model to them.
 ``--k1`` builds the kernels, prints the ``-Xptxas -v`` lines of
 ``fuse_warp.cu``'s kernels, holds K1 (both variants) and K5 against their
 plain versions at the flagship (K5 also bit for bit against K1's one-slot
@@ -1804,23 +1806,73 @@ def s8_products(x_shape, w_shape, y_shape, stride, padding, dilation):
     return pairs * w_shape[1] * w_shape[0]
 
 
+def s8_plan_line(x, qp, args):
+    """The int8 conv's plan at this call (``conv_s8.prepare``): tiling
+    (of the space-to-depth form where it has one), BN, BK, split, stages
+    and the share of (tile, tap) pairs skipped as off the map; and the
+    (WGM, BN) instantiation it launches."""
+    from fbbev_tpu_torch.ops import conv_s8 as S8
+    c = S8.prepare(x, qp, *args)
+    cv, p = c.cv, c.plan
+    if p.flat:
+        tiles, live = p.tiles_x, p.tiles_x
+        box = f"flat {p.BM} rows"
+    else:
+        tiles = cv.N * p.tiles_d * p.tiles_y * p.tiles_x
+        live = S8.live_total(cv, p.TD, p.TY, p.TX)
+        box = f"box {p.TD}x{p.TY}x{p.TX} of BM {p.BM}"
+    taps = cv.KD * cv.KH * cv.KW
+    return (f"{'space to depth, ' if c.w_k is not None else ''}"
+            f"{box}, {tiles}x{p.tiles_n}x{cv.G} tiles, BN {p.BN}, BK "
+            f"{p.BK}, split {p.S}, {p.stages} stages, taps skipped "
+            f"{1 - live / (tiles * taps):.3f}",
+            f"conv_s8_wgmma<{p.BM // 64},{p.BN}>")
+
+
+def s8_ptxas():
+    """{kernel: "regs R spill S/L"} of ``conv_s8.cu``'s build log."""
+    return dict(part.split(" ", 1) for part in
+                lib_ptxas("conv_s8").split(" | ") if " " in part)
+
+
+def int_mm_operands(xq, w_k, w_shape, args):
+    """``torch._int_mm``'s operands for one conv: the (M, K) int8 im2col of
+    quantized ``xq`` and the packed weights as a column-major (K, Nc),
+    padded with zeros to M >= 24 rows (a multiple of 8, > 16), K and Nc
+    multiples of 8, which leaves the product's first M rows and Nc
+    columns exact."""
+    import torch.nn.functional as F
+    a = im2col_s8(xq, w_shape, *args[:3])
+    M, K = a.shape
+    Nc, Cin = w_shape[0], w_shape[1]
+    Mp, Kp, Np = max(24, -(-M // 8) * 8), -(-K // 8) * 8, -(-Nc // 8) * 8
+    a = F.pad(a, (0, Kp - K, 0, Mp - M)).contiguous()
+    b = w_k[0, :, :Nc, :Cin].permute(1, 0, 2).reshape(Nc, K)
+    b = F.pad(b, (0, Kp - K, 0, Np - Nc)).contiguous()
+    return a, b.t(), (M, K, Nc, Mp, Kp, Np)
+
+
 def check_conv_s8(dev, seen, label):
     """The int8 conv kernel at each recorded call of ``seen``
     (:func:`s8_recorded`): bit for bit against its plain version, int32
     sums and outputs (``torch.equal``); per call and from a CUDA graph;
-    the plain version; ``torch._int_mm`` on a prebuilt im2col where its
-    rules allow (M > 16, K and N multiples of 8, one group); cuDNN's bf16
-    conv of the same shape; its bound (bytes once / 3.35 TB/s, the
-    products of :func:`s8_products` / 1979 TOP/s).  One line per shape;
-    returns the entry of the pass (each figure summed over the convs the
-    calls stand for)."""
+    its quantize pass alone from a graph; the plain version;
+    ``torch._int_mm`` on a prebuilt im2col (zero padded to its shape
+    rules, :func:`int_mm_operands`; one group only) per call and from a
+    graph; cuDNN's bf16 conv of the same shape; its bound (bytes once /
+    3.35 TB/s, the products of :func:`s8_products` / 1979 TOP/s).  One
+    line per shape with its plan (:func:`s8_plan_line`) and its
+    instantiation's registers and spills; returns the entry of the pass
+    (each figure summed over the convs the calls stand for)."""
     import torch
     import torch.nn.functional as F
     from fbbev_tpu_torch.ops import conv_s8 as S8
-    tot = dict(ms=0.0, graph_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               bytes_ms=0.0, ops_ms=0.0, cudnn_bf16_ms=0.0, library_ms=0.0,
-               library_kernel_ms=0.0)
+    tot = dict(ms=0.0, graph_ms=0.0, quantize_graph_ms=0.0, host_us=0.0,
+               plain_ms=0.0,
+               bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, cudnn_bf16_ms=0.0,
+               library_ms=0.0, library_graph_ms=0.0, library_kernel_ms=0.0)
     n_convs = n_lib = 0
+    regs = s8_ptxas()
     for key, (x, qp, args, calls) in sorted(seen.items(),
                                             key=lambda kv: -kv[1][3]):
         y, acc = S8.conv_s8(x, qp, *args, return_sums=True)
@@ -1833,38 +1885,45 @@ def check_conv_s8(dev, seen, label):
                                  f"{torch.equal(acc, want_acc)}, max_abs_err "
                                  f"{err}")
         w = qp["w_q"]
-        M, K, Nc = y.numel() // y.shape[1], w[0].numel(), w.shape[0]
         ops = 2 * s8_products(x.shape, w.shape, y.shape, *args[:3])
         nbytes = (x.numel() * x.element_size() + w.numel()
                   + y.numel() * y.element_size())
         b = bound(nbytes, s8_ops=ops)
         ms = cuda_time(lambda: S8.conv_s8(x, qp, *args))
         gms = graph_time(lambda: S8.conv_s8(x, qp, *args))
+        hus = host_us(lambda: S8.conv_s8(x, qp, *args), n=100)
+        cv = S8.conv_geometry(tuple(x.shape), tuple(w.shape), *args)
+        qms = graph_time(lambda: S8.quantize_cl(x, qp["m_x"], qp["s_x"],
+                                                cv))
         pms = cuda_time(lambda: S8.conv_s8_plain(x, qp, *args), iters=3,
                         warmup=1)
         wb = w.to(torch.bfloat16)
         xb = x.to(torch.bfloat16)
         conv = F.conv2d if x.dim() == 4 else F.conv3d
         cms = cuda_time(lambda: conv(xb, wb, None, *args))
-        lms = None
-        if M > 16 and K % 8 == 0 and Nc % 8 == 0 and args[3] == 1:
-            a = im2col_s8(S8.quantize_plain(x, qp["m_x"], qp["s_x"]),
-                          w.shape, *args[:3]).contiguous()
-            bt = qp["w_k"][0, :Nc, :K].t()
-            try:
-                lms = cuda_time(lambda: torch._int_mm(a, bt))
-            except RuntimeError as e:
-                log(f"  torch._int_mm refused {tuple(a.shape)} x "
-                    f"{tuple(bt.shape)}: {str(e).splitlines()[0]}")
-            del a
+        lms = lgms = None
+        if args[3] == 1:
+            a, bt, dims = int_mm_operands(
+                S8.quantize_plain(x, qp["m_x"], qp["s_x"]), qp["w_k"],
+                w.shape, args)
+            lms = cuda_time(lambda: torch._int_mm(a, bt))
+            lgms = graph_time(lambda: torch._int_mm(a, bt))
+            del a, bt
+        plan, inst = s8_plan_line(x, qp, args)
+        padded = ("" if lms is None or dims[:3] == dims[3:] else
+                  " (padded {}x{}x{} -> {}x{}x{})".format(*dims))
         log(f"  {label} {calls}x x{list(key[0])} {key[2]} w{list(key[3])} "
             f"s/p/d/g {key[4]}{' per-channel' if key[5] else ''}: "
-            f"kernel {ms:.4f} ms, graph {gms:.4f}, plain {pms:.4f}, "
-            f"cuDNN bf16 {cms:.4f}, _int_mm "
-            f"{'n/a' if lms is None else f'{lms:.4f}'}, bound {b[0]:.4f} "
-            f"({b[1]}), {ops / (gms * 1e9):.1f} TOP/s from the graph")
+            f"kernel {ms:.4f} ms, graph {gms:.4f} (quantize pass "
+            f"{qms:.4f}), host {hus:.1f} us, plain {pms:.4f}, cuDNN bf16 {cms:.4f}, _int_mm "
+            f"{'n/a' if lms is None else f'{lms:.4f} / {lgms:.4f}'}"
+            f"{padded}, bound {b[0]:.4f} ({b[1]}), "
+            f"{ops / (gms * 1e9):.1f} TOP/s from the graph; {plan}; "
+            f"{inst} {regs.get(inst, '?')}")
         tot["ms"] += calls * ms
         tot["graph_ms"] += calls * gms
+        tot["quantize_graph_ms"] += calls * qms
+        tot["host_us"] += calls * hus
         tot["plain_ms"] += calls * pms
         tot["cudnn_bf16_ms"] += calls * cms
         tot["bound_ms"] += calls * b[0]
@@ -1874,21 +1933,30 @@ def check_conv_s8(dev, seen, label):
         if lms is not None:
             n_lib += calls
             tot["library_ms"] += calls * lms
+            tot["library_graph_ms"] += calls * lgms
             tot["library_kernel_ms"] += calls * ms
     by = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
     e = entry(label, S8_SRC, S8_REPLACES, 0.0, 0.0, tot["ms"],
               tot["plain_ms"], (tot["bound_ms"], by),
               tot["library_ms"] if n_lib == n_convs else None)
-    e.update(graph_ms=tot["graph_ms"], cudnn_bf16_ms=tot["cudnn_bf16_ms"],
+    e.update(graph_ms=tot["graph_ms"],
+             library_graph_ms=(tot["library_graph_ms"] if n_lib == n_convs
+                               else None),
+             quantize_graph_ms=tot["quantize_graph_ms"],
+             host_us=tot["host_us"] / max(n_convs, 1),
+             cudnn_bf16_ms=tot["cudnn_bf16_ms"],
              convs=n_convs, shapes=len(seen), library_convs=n_lib,
              library_partial_ms=tot["library_ms"],
              library_partial_kernel_ms=tot["library_kernel_ms"])
     log(f"{label}: {n_convs} convs at {len(seen)} shapes, bit for bit; "
         f"kernel {tot['ms']:.4f} ms per call, {tot['graph_ms']:.4f} from "
-        f"graphs; cuDNN bf16 {tot['cudnn_bf16_ms']:.4f}; bound "
+        f"graphs (of it the quantize pass {tot['quantize_graph_ms']:.4f}); "
+        f"host {tot['host_us'] / max(n_convs, 1):.1f} us a call; "
+        f"cuDNN bf16 {tot['cudnn_bf16_ms']:.4f}; bound "
         f"{tot['bound_ms']:.4f} ({by}); torch._int_mm at {n_lib} of "
-        f"{n_convs}: {tot['library_ms']:.4f} ms against the kernel's "
-        f"{tot['library_kernel_ms']:.4f} there")
+        f"{n_convs}: {tot['library_ms']:.4f} ms per call, "
+        f"{tot['library_graph_ms']:.4f} from graphs, against the kernel's "
+        f"{tot['library_kernel_ms']:.4f} per call there")
     return e
 
 
@@ -3209,6 +3277,123 @@ def profile_vov(dev, frames=5):
     depth_net_convs(pipe, imgs[1], dev)
 
 
+def s8_plans(dev, vov=False, top=40):
+    """``--s8-plans``: the int8 conv's plans at every distinct conv of one
+    int8 frame of the folded flagship with the BEV side (97 convs; with
+    ``vov`` VoVNet-99's 132): the ``top`` plans of
+    ``conv_s8.plans_s8``'s model, each held bit for bit (int32 sums)
+    against the plain version and timed from a CUDA graph.  One line per
+    shape: the chosen plan's time, the fastest plan and its time; then the
+    totals over the frame's convs, chosen against fastest.  Returns the
+    sweep's rows (:func:`s8_plan_sweep`)."""
+    import torch
+    from fbbev_tpu_torch.config import Config
+    from fbbev_tpu_torch.ops import _cuda
+    from fbbev_tpu_torch.serving import FixedRigPipeline
+    from fbbev_tpu_torch.utils import quantize as Q
+    from fbbev_tpu_torch.utils.fuse_bn import build_folded
+    name, (H, W) = ((VOV, VOV_SIZE) if vov
+                    else ("fbocc-r50-cbgs_depth_16f.py", (256, 704)))
+    cfg = Config.fromfile(os.path.join(CONFIGS, name))
+    pipe = FixedRigPipeline(build_folded(
+        cfg, device=dev, generator=torch.Generator().manual_seed(0)),
+        flagship_rig(N=6, H=H, W=W))
+    g = torch.Generator().manual_seed(1)
+    imgs = [torch.randn(1, 6, H, W, 3, generator=g).to(dev)
+            for _ in range(3)]
+    pipe.enable_int8(imgs[:2], [
+        dict(start_of_sequence=True),
+        dict(start_of_sequence=False, curr_to_prev_ego_rt=flow(1))],
+        exclude=None if vov else Q.DEFAULT_EXCLUDE)
+    pipe(imgs[0], True)
+    _, seen = s8_recorded(lambda: pipe(imgs[1], False, flow(1)))
+    del pipe
+    torch.cuda.empty_cache()
+    return s8_plan_sweep(seen, "vov99" if vov else "flagship+BEV",
+                         _cuda.sm_count(dev), top)
+
+
+def fit_s8_model(rows, sms):
+    """Least-squares fit of ``conv_s8.modelled_time``'s constants -- the
+    step time of each (BM, BN, BK), the wave, split, per-output-element,
+    per-call and per-box-byte times -- to the sweep's plan times ``rows`` ((conv, plan, ms,
+    calls); rows weighted by 1 / time, so relative errors count; the
+    partials' HBM bytes are known), printed as code; then the frame's
+    convs as the fitted model picks their plans (in-sample)."""
+    from fbbev_tpu_torch.ops import conv_s8 as S8
+    keys = sorted({(p.BM, p.BN, p.BK) for _, p, _, _ in rows})
+    names = ["waves", "split", "out", "call", "l2"]
+    A, rhs = [], []
+    for cv, p, ms, _ in rows:
+        t = S8.model_terms(cv, p, sms)
+        r = [0.0] * (len(keys) + len(names))
+        r[keys.index((p.BM, p.BN, p.BK))] = t["steps"]
+        for i, n in enumerate(names):
+            r[len(keys) + i] = t[n]
+        sec = ms * 1e-3
+        A.append([v / sec for v in r])
+        rhs.append((sec - t["partial_bytes"] / S8.HBM_BPS) / sec)
+    coef = np.linalg.lstsq(np.array(A), np.array(rhs), rcond=None)[0]
+    rel = np.abs(np.array(A) @ coef - np.array(rhs))
+    log(f"conv_s8 plan model fitted to {len(rhs)} plan times (relative "
+        f"error median {np.median(rel):.3f}, max {rel.max():.3f}):")
+    log("  STEP_S = {" + ", ".join(f"{k}: {v:.4e}" for k, v in
+                                   zip(keys, coef)) + "}")
+    for n, v in zip(["WAVE_S", "SPLIT_S", "OUT_S", "FIXED_S", "L2_S"],
+                    coef[len(keys):]):
+        log(f"  {n} = {v:.4e}")
+    step = dict(zip(keys, coef))
+    wave, split, out, call, l2 = coef[len(keys):]
+    by_conv = {}
+    for cv, p, ms, calls in rows:
+        t = S8.model_terms(cv, p, sms)
+        m = (t["steps"] * step[p.BM, p.BN, p.BK] + t["waves"] * wave
+             + t["split"] * split + t["partial_bytes"] / S8.HBM_BPS
+             + t["out"] * out + call + t["l2"] * l2)
+        by_conv.setdefault(cv, []).append((m, ms, calls))
+    picked = sum(min(v)[2] * min(v)[1] for v in by_conv.values())
+    log(f"conv_s8 plans as the fitted model picks them: {picked:.4f} ms "
+        f"for the frame's convs (graph times, in-sample)")
+
+
+def s8_plan_sweep(seen, label, sms, top):
+    """:func:`s8_plans`'s sweep over the recorded calls ``seen``; returns
+    its rows (conv, plan, ms, calls)."""
+    import torch
+    from fbbev_tpu_torch.ops import conv_s8 as S8
+    chosen_ms = best_ms = 0.0
+    rows = []
+    for key, (x, qp, args, calls) in sorted(seen.items(),
+                                            key=lambda kv: -kv[1][3]):
+        cv = S8.prepare(x, qp, *args).cv  # the GEMM's conv
+        want = S8.sums_plain(S8.quantize_plain(x, qp["m_x"], qp["s_x"]),
+                             qp["w_q"], *args)
+        plans = sorted(S8.plans_s8(cv, sms))[:top]
+        times = []
+        for k, p in plans:
+            c = S8.prepare(x, qp, *args, plan=p)
+            _, acc = S8.launch(x, qp, c, return_sums=True)
+            torch.cuda.synchronize()
+            if not torch.equal(acc, want):
+                raise AssertionError(f"conv_s8 plan {p} differs at {key}")
+            times.append((graph_time(lambda: S8.launch(x, qp, c)), k, p))
+        rows += [(cv, p, t, calls) for t, _, p in times]
+        best = min(times, key=lambda t: t[0])
+        chosen_ms += calls * times[0][0]
+        best_ms += calls * best[0]
+        fmt = (lambda t: f"{t[0]:.4f} ms (model {t[1][0] / 100:.2f} us) "
+               f"{'flat' if t[2].flat else f'{t[2].TD}x{t[2].TY}x{t[2].TX}'}"
+               f" BM {t[2].BM} BN {t[2].BN} BK {t[2].BK} S {t[2].S} "
+               f"stages {t[2].stages}")
+        log(f"  s8 plans {label} {calls}x x{list(key[0])} "
+            f"w{list(key[3])} s/p/d/g {key[4]}: {len(plans)} plans bit "
+            f"for bit; chosen {fmt(times[0])}; fastest {fmt(best)}")
+    log(f"s8 plans {label}: the frame's convs {chosen_ms:.4f} ms under the "
+        f"chosen plans, {best_ms:.4f} under the fastest "
+        f"({nvidia_smi_line()})")
+    return rows
+
+
 def k1_captured(run):
     """``run()`` with K1's wrapper recording its inputs: (run's result,
     (args, kwargs) of K1's last call)."""
@@ -3313,7 +3498,7 @@ def profile_frames(pipe, imgs, frames, ours, label):
 # name fragments of the port's own kernels in a profile
 PORT_KERNELS = ("bev_pool_kernel", "msda_kernel", "fuse_warp_kernel",
                 "fuse_warp_epi", "warp_box_kernel", "conv3d_", "split_sum",
-                "occ_", "conv_s8_kernel")
+                "occ_", "conv_s8_wgmma", "quantize_cl", "s8_finish")
 
 
 def profile_images(dev):
@@ -3749,6 +3934,19 @@ def main():
         return 0
     if "--k7-plans" in sys.argv[1:]:
         k7_plans(dev)
+        return 0
+    if "--s8-plans" in sys.argv[1:]:
+        # every plan of the model's top 40 at the int8 convs of a flagship
+        # frame (with the BEV side) and of a VoVNet-99 frame, then the time
+        # model fitted to each sweep and to both
+        log(f"conv_s8.cu ptxas: {lib_ptxas('conv_s8')}")
+        sms = _cuda.sm_count(dev)
+        flagship = s8_plans(dev)
+        fit_s8_model(flagship, sms)
+        vov = s8_plans(dev, vov=True)
+        fit_s8_model(vov, sms)
+        fit_s8_model(flagship + vov, sms)
+        log(f"chip_smoke --s8-plans: {time.perf_counter() - T0:.1f} s")
         return 0
 
     # the JSON line lists each kernel once, at its main-path shapes; the

@@ -1036,6 +1036,15 @@ S8_CASES = {
     "3d_s1": ((1, 32, 10, 10, 4), 48, (3, 3, 3), 1, 1, 1, 1, True),
     "3d_s2": ((1, 32, 10, 10, 4), 64, (3, 3, 3), 2, 1, 1, 1, False),
     "3d_1x1x1": ((1, 40, 6, 6, 4), 24, (1, 1, 1), 1, 0, 1, 1, True),
+    # split K at the flagship's 8x22 map, dilation 12 at 16 rows (taps
+    # skipped per tile), VoVNet's Cin 160, the neck's 2560 -> 512, a BEV
+    # 3D conv at 25x25x2
+    "splitk_8x22_1x1": ((6, 2048, 8, 22), 512, (1, 1), 1, 0, 1, 1, True),
+    "splitk_8x22_3x3": ((6, 512, 8, 22), 512, (3, 3), 1, 1, 1, 1, False),
+    "dil12_16rows": ((2, 64, 16, 44), 72, (3, 3), 1, 12, 12, 1, False),
+    "cin160": ((2, 160, 20, 24), 96, (3, 3), 1, 1, 1, 1, True),
+    "1x1_2560": ((2, 2560, 16, 44), 512, (1, 1), 1, 0, 1, 1, True),
+    "3d_25x25x2": ((1, 256, 25, 25, 2), 256, (3, 3, 3), 1, 1, 1, 1, True),
 }
 
 
@@ -1069,6 +1078,41 @@ def test_conv_s8_kernel_equals_plain(dev, case, dtype, per_channel):
     assert y.is_contiguous(memory_format=fmt)
     assert torch.equal(acc, want_acc)
     assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("shape,cl", [((2, 19, 9, 37), False),
+                                      ((2, 48, 9, 37), True),
+                                      ((1, 3, 40, 56), True),
+                                      ((1, 40, 6, 6, 4), False),
+                                      ((1, 40, 6, 6, 4), True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_conv_s8_quantize_pass_equals_plain(dev, shape, cl, dtype,
+                                            per_channel):
+    """The kernel's quantize pass bit for bit against its plain version:
+    int8 (N, D, H, W, Cp) with zero channel padding, from NCHW and
+    channels-last x."""
+    from fbbev_tpu_torch.ops import conv_s8
+    rng = np.random.RandomState(shape[1])
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 4).to(
+        dev, dtype)
+    if cl:
+        x = x.contiguous(memory_format=torch.channels_last if x.dim() == 4
+                         else torch.channels_last_3d)
+    m_x = (torch.from_numpy((rng.rand(shape[1]) * 40 + 10).astype(
+        np.float32)).to(dev) if per_channel else None)
+    s_x = torch.tensor(np.float32(0.05), device=dev)
+    before = conv_s8.quantize_launches
+    got = conv_s8.quantize_cl(x, m_x, s_x)
+    torch.cuda.synchronize()
+    assert conv_s8.quantize_launches == before + 1
+    assert torch.equal(got, conv_s8.quantize_cl_plain(x, m_x, s_x))
+    if x.dim() == 4 and shape[1] <= 4:  # the stem's space-to-depth pass
+        cv = conv_s8.conv_geometry(shape, (16, shape[1], 7, 7), 2, 3, 1, 1)
+        got = conv_s8.quantize_cl(x, m_x, s_x, cv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, conv_s8.quantize_s2d_plain(x, m_x, s_x, cv))
 
 
 def test_conv_s8_refuses_what_it_does_not_take(dev):

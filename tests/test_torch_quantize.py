@@ -322,13 +322,19 @@ def test_int8_refuses_autograd():
 
 
 def test_pack_weight_layout():
-    """K-major: k = tap * Cg + c, zero padded to 32 in K, 128 in N."""
+    """(G, taps, Npad, Cpad): a tap's (n, c) slab K-major, zero past
+    Cout / G and C / G, both padded to 16."""
     w = torch.randint(-127, 128, (6, 3, 2, 3), dtype=torch.int8)
     pk = conv_s8.pack_weight(w, 2)
-    assert pk.shape == (2, 128, 32)
+    assert pk.shape == (2, 6, 16, 16) and pk.is_contiguous()
     for g, n, tap, c in [(0, 0, 0, 0), (1, 2, 5, 2), (1, 1, 3, 1)]:
-        assert pk[g, n, tap * 3 + c] == w[g * 3 + n, c, tap // 3, tap % 3]
-    assert not pk[:, 3:].any() and not pk[:, :, 18:].any()
+        assert pk[g, tap, n, c] == w[g * 3 + n, c, tap // 3, tap % 3]
+    assert not pk[:, :, 3:].any() and not pk[:, :, :, 3:].any()
+    w3 = torch.randint(-127, 128, (20, 40, 3, 3, 3), dtype=torch.int8)
+    pk3 = conv_s8.pack_weight(w3, 1)
+    assert pk3.shape == (1, 27, 32, 48)
+    assert torch.equal(pk3[0, :, :20, :40],
+                       w3.reshape(20, 40, 27).permute(2, 0, 1))
 
 
 # (x shape, w shape, stride, padding, dilation, groups): the depth net's
@@ -355,6 +361,317 @@ def test_s8_bound_counts_in_map_products(case):
              torch.ones(ws, dtype=torch.float64), None, st, pd, dl, g)
     assert chip_smoke.s8_products(xs, ws, y.shape, st, pd, dl) == int(
         y.sum())
+
+
+# --------------------------------------------------------------------------
+# the kernel's design on the CPU: quantize pass, plan, live taps, split-K
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_quantize_pass_layout_and_rounding(layout, per_channel):
+    """The quantize pass's plain version: (N, D, H, W, Cp) int8, Cp = C
+    rounded up to 16, zeros in the padding, :func:`quantize_plain`'s values
+    whatever x's memory layout; half-way values round to even."""
+    rng = np.random.RandomState(4)
+    s_x = torch.tensor(np.float32(0.5))
+    m_x = (torch.from_numpy((rng.rand(19) + 0.5).astype(np.float32))
+           if per_channel else None)
+    x = torch.from_numpy(rng.randn(2, 19, 5, 7).astype(np.float32) * 20)
+    if m_x is not None:
+        m_x[:3] = 2.0
+    # x / s_x (or x * m_x) exactly 2.5, -3.5, 0.5: round to 2, -4, 0
+    for c, v in ((0, 2.5), (1, -3.5), (2, 0.5)):
+        x[0, c, 1, 2] = v / 2
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    q = conv_s8.quantize_cl_plain(x, m_x, s_x)
+    assert q.shape == (2, 1, 5, 7, 32) and q.dtype == torch.int8
+    want = conv_s8.quantize_plain(x, m_x, s_x)
+    assert torch.equal(q[:, 0, :, :, :19], want.permute(0, 2, 3, 1))
+    assert not q[..., 19:].any()
+    assert [int(q[0, 0, 1, 2, c]) for c in range(3)] == [2, -4, 0]
+    assert int(q.max()) <= 127 and int(q.min()) >= -127
+    x3 = torch.randn(1, 5, 3, 4, 6)
+    q3 = conv_s8.quantize_cl_plain(x3, None, s_x)
+    assert q3.shape == (1, 3, 4, 6, 16)
+    assert torch.equal(q3[..., :5], conv_s8.quantize_plain(
+        x3, None, s_x).permute(0, 2, 3, 4, 1))
+
+
+def _box(xq, cv, p, n, od0, oh0, ow0, m0, tap, c, width):
+    """The kernel's A box of tap ``tap`` at channel ``c``: (BM, width)
+    int64 rows in box order, zero where TMA zero-fills (off the map,
+    channels past Cp) and past the box."""
+    N, D, H, W, Cp = xq.shape
+    a = torch.zeros(p.BM, width, dtype=torch.int64)
+    cols = [c + j for j in range(width) if c + j < Cp]
+    if p.flat:
+        rows = torch.arange(m0, min(m0 + p.BM, N * D * H * W))
+        a[:len(rows), :len(cols)] = xq.reshape(-1, Cp)[rows][:, cols]
+        return a
+    kd, kh, kw = tap // (cv.KH * cv.KW), tap // cv.KW % cv.KH, tap % cv.KW
+    for r in range(p.TD * p.TY * p.TX):
+        td, ty, tx = r // (p.TY * p.TX), r // p.TX % p.TY, r % p.TX
+        i_d = (od0 + td) * cv.sd - cv.pd + kd * cv.dd
+        i_h = (oh0 + ty) * cv.sh - cv.ph + kh * cv.dh
+        i_w = (ow0 + tx) * cv.sw - cv.pw + kw * cv.dw
+        if 0 <= i_d < D and 0 <= i_h < H and 0 <= i_w < W:
+            a[r, :len(cols)] = xq[n, i_d, i_h, i_w, cols]
+    return a
+
+
+def _weights(wk, grp, tap, n0, BN, c, width):
+    """The kernel's B box: (BN, width) of the packed weights, zero past
+    them (a tap index past the last is all zeros)."""
+    G, T, Npad, Cpad = wk.shape
+    b = torch.zeros(BN, width, dtype=torch.int64)
+    if tap < T:
+        blk = wk[grp, tap, n0:n0 + BN, c:c + width]
+        b[:blk.shape[0], :blk.shape[1]] = blk
+    return b
+
+
+def emulate_sums(x, qp, stride, padding, dilation, groups, plan=None):
+    """The kernel's int32 sums by its decomposition: the space-to-depth
+    form where ``s2d_geometry`` gives one, ``plan_s8``'s tiles, each
+    tile's live taps, K steps of one A box and one B box (two of each a
+    step at BK = 16, the odd last tap's partner zero weights), split S
+    ways into int32 partials that a second pass sums."""
+    cv0 = conv_s8.conv_geometry(tuple(x.shape), tuple(qp["w_q"].shape),
+                                stride, padding, dilation, groups)
+    cv = conv_s8.s2d_geometry(cv0) or cv0
+    p = plan or conv_s8.plan_s8(cv)
+    if cv is cv0:
+        xq = conv_s8.quantize_cl_plain(x, qp["m_x"], qp["s_x"]).long()
+        wk = conv_s8.pack_weight(qp["w_q"], groups).long()
+    else:
+        xq = conv_s8.quantize_s2d_plain(x, qp["m_x"], qp["s_x"], cv0).long()
+        wk = conv_s8.pack_weight(conv_s8.s2d_weight(qp["w_q"]), 1).long()
+    T = cv.KD * cv.KH * cv.KW
+    M = cv.N * cv.Do * cv.Ho * cv.Wo
+    parts = torch.zeros(p.S, M, cv.Co, dtype=torch.int64)
+    n_tiles = p.tiles_x if p.flat else cv.N * p.tiles_d * p.tiles_y * \
+        p.tiles_x
+    chunks = 1 if p.BK == 16 else -(-cv.Cg // p.BK)
+    for mt in range(n_tiles):
+        n, od0, oh0, ow0 = conv_s8.tile_origin(cv, p, mt)
+        m0 = ow0 if p.flat else 0
+        taps = conv_s8.live_taps(cv, p, mt)
+        steps = conv_s8.k_steps(cv, p.BK, len(taps))
+        rows = []
+        for r in range(p.BM):
+            if p.flat:
+                rows.append(m0 + r if m0 + r < M else -1)
+                continue
+            td, ty, tx = r // (p.TY * p.TX), r // p.TX % p.TY, r % p.TX
+            od, oh, ow = od0 + td, oh0 + ty, ow0 + tx
+            ok = (r < p.TD * p.TY * p.TX and od < cv.Do and oh < cv.Ho
+                  and ow < cv.Wo)
+            rows.append(((n * cv.Do + od) * cv.Ho + oh) * cv.Wo + ow
+                        if ok else -1)
+        keep = torch.tensor([r for r in range(p.BM) if rows[r] >= 0])
+        dest = torch.tensor([rows[r] for r in keep.tolist()])
+        for grp in range(cv.G):
+            for nt in range(p.tiles_n):
+                n0 = nt * p.BN
+                for split in range(p.S):
+                    s0, s1 = conv_s8.split_range(steps, p.S, split)
+                    acc = torch.zeros(p.BM, p.BN, dtype=torch.int64)
+                    for step in range(s0, s1):
+                        if p.BK == 16:
+                            t0 = taps[2 * step]
+                            two = 2 * step + 1 < len(taps)
+                            t1 = taps[2 * step + 1] if two else t0
+                            loads = [(t0, t0, 0), (t1, t1 if two else T, 0)]
+                            width = 16
+                        else:
+                            t = taps[step // chunks]
+                            loads = [(t, t, step % chunks * p.BK)]
+                            width = p.BK
+                        for ta, tb, c0 in loads:
+                            a = _box(xq, cv, p, n, od0, oh0, ow0, m0, ta,
+                                     grp * cv.Cg + c0, width)
+                            b = _weights(wk, grp, tb, n0, p.BN, c0, width)
+                            acc += (a.double() @ b.double().t()).long()
+                    ncols = min(p.BN, cv.Ng - n0)
+                    if len(keep):
+                        o0 = grp * cv.Ng + n0
+                        parts[split, dest, o0:o0 + ncols] = \
+                            acc[keep, :ncols]
+    for part in parts:
+        assert part.abs().max() < 2 ** 31  # int32 partials
+    s = parts.sum(0).reshape(cv.N, cv.Do, cv.Ho, cv.Wo, cv.Co)
+    s = s.permute(0, 4, 1, 2, 3)
+    return (s[:, :, 0] if x.dim() == 4 else s).to(torch.int32)
+
+
+# (x shape, Cout, kernel, stride, padding, dilation, groups, per-channel):
+# each class the kernel takes, at small N
+EMU_CASES = {
+    "dil18_16rows": ((1, 40, 16, 44), 24, 3, 1, 18, 18, 1, True),
+    "dil12_16rows": ((1, 40, 16, 44), 24, 3, 1, 12, 12, 1, True),
+    "splitk_8x22_3x3": ((1, 160, 8, 22), 32, 3, 1, 1, 1, 1, True),
+    "splitk_8x22_1x1": ((1, 288, 8, 22), 80, 1, 1, 0, 1, 1, True),
+    "stride2_3x3": ((1, 24, 11, 13), 16, 3, 2, 1, 1, 1, False),
+    "stride2_1x1": ((1, 24, 11, 13), 32, 1, 2, 0, 1, 1, True),
+    "stem_7x7_s2": ((1, 3, 20, 26), 16, 7, 2, 3, 1, 1, True),
+    "conv3d_s1": ((1, 24, 5, 5, 2), 16, 3, 1, 1, 1, 1, True),
+    "conv3d_s2_1x1x1": ((1, 24, 6, 5, 4), 16, 1, 2, 0, 1, 1, False),
+    "grouped": ((1, 64, 9, 9), 32, 3, 2, 1, 1, 2, False),
+    "grouped_narrow": ((1, 24, 7, 7), 24, 3, 1, 1, 1, 2, False),
+    "pooled_m6": ((6, 96, 1, 1), 40, 1, 1, 0, 1, 1, True),
+}
+
+
+def _emu_inputs(case):
+    shape, cout, k, st, pd, dl, g, per_channel = EMU_CASES[case]
+    rng = np.random.RandomState(len(case) + 100)
+    ks = (k,) * (len(shape) - 2)
+    qp = {"w_q": torch.from_numpy(rng.randint(-127, 128, (
+              cout, shape[1] // g) + ks).astype(np.int8)),
+          "s_x": torch.tensor(np.float32(0.03)),
+          "m_x": (torch.from_numpy((rng.rand(shape[1]) * 40 + 20).astype(
+              np.float32)) if per_channel else None)}
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3)
+    return x, qp, (st, pd, dl, g)
+
+
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_kernel_decomposition_equals_sums(case):
+    """The kernel's decomposition (:func:`emulate_sums`) under its own plan
+    and under plans forced to split K, held ``torch.equal`` to the plain
+    sums: TMA boxes with zero fill and strides, skipped taps, the stem's
+    two taps a step, group offsets, flat tiles, int32 split-K partials."""
+    x, qp, args = _emu_inputs(case)
+    want = conv_s8.sums_plain(conv_s8.quantize_plain(x, qp["m_x"],
+                                                     qp["s_x"]),
+                              qp["w_q"], *args)
+    cv = conv_s8.conv_geometry(tuple(x.shape), tuple(qp["w_q"].shape),
+                               *args)
+    cv = conv_s8.s2d_geometry(cv) or cv
+    p = conv_s8.plan_s8(cv)
+    assert torch.equal(emulate_sums(x, qp, *args, plan=p), want)
+    steps = conv_s8.k_steps(cv, p.BK, len(conv_s8.live_taps(cv, p, 0)))
+    for S in (3, steps + 2):  # splits with empty ranges write zeros
+        assert torch.equal(emulate_sums(x, qp, *args, plan=p._replace(S=S)),
+                           want), S
+
+
+def test_plan_s8_at_flagship_shapes():
+    """The plans of the classes the flagship gives the kernel: flat 1x1s,
+    the stem's two taps a step, split K among the candidates where the
+    grid is small, and every plan within the kernel's limits."""
+    shapes = {  # x, w, stride, padding, dilation, groups
+        "stem": ((6, 3, 256, 704), (64, 3, 7, 7), 2, 3, 1, 1),
+        "l1_1x1": ((6, 64, 64, 176), (64, 64, 1, 1), 1, 0, 1, 1),
+        "l2_3x3_s2": ((6, 128, 64, 176), (128, 128, 3, 3), 2, 1, 1, 1),
+        "l3_3x3": ((6, 256, 16, 44), (256, 256, 3, 3), 1, 1, 1, 1),
+        "aspp_d18": ((6, 512, 16, 44), (512, 512, 3, 3), 1, 18, 18, 1),
+        "neck_2560": ((6, 2560, 16, 44), (512, 2560, 1, 1), 1, 0, 1, 1),
+        "l4_1x1": ((6, 2048, 8, 22), (512, 2048, 1, 1), 1, 0, 1, 1),
+        "l4_3x3": ((6, 512, 8, 22), (512, 512, 3, 3), 1, 1, 1, 1),
+        "pooled": ((6, 512, 1, 1), (256, 512, 1, 1), 1, 0, 1, 1),
+        "bev_25x25x2": ((1, 256, 25, 25, 2), (256, 256, 3, 3, 3), 1, 1, 1,
+                        1),
+        "vov_160": ((6, 160, 64, 176), (160, 160, 3, 3), 1, 1, 1, 1),
+    }
+    plans = {}
+    for name, (xs, ws, *args) in shapes.items():
+        cv = conv_s8.conv_geometry(xs, ws, *args)
+        p = plans[name] = conv_s8.plan_s8(cv)
+        stage = conv_s8.ring(p.BM, p.BN, p.BK)[0]
+        assert 2 <= p.stages <= conv_s8.MAX_STAGES
+        assert conv_s8.smem_bytes(p.BM, stage, p.stages) <= 227 * 1024 - 4096
+        assert p.stages * stage >= p.BM // 64 * conv_s8.EPI_BYTES
+        if not p.flat:
+            assert p.TD * p.TY * p.TX <= p.BM
+            assert max(p.TX * cv.sw, p.TY * cv.sh, p.TD * cv.sd) <= 256
+        assert p.flat == conv_s8.is_flat(cv)
+    assert plans["stem"].BK == 16 and plans["pooled"].flat
+    stem = conv_s8.s2d_geometry(conv_s8.conv_geometry(*shapes["stem"][:2],
+                                                      *shapes["stem"][2:]))
+    assert (stem.C, stem.KH, stem.KW, stem.sh, stem.ph, stem.H, stem.W) == (
+        12, 4, 4, 1, 0, 131, 355)
+    assert conv_s8.plan_s8(stem).BK == 16
+    for name in ("l4_3x3", "bev_25x25x2", "pooled"):  # small grids: split
+        xs, ws, *args = shapes[name]                   # K is considered
+        assert any(p.S > 1 for _, p in conv_s8.plans_s8(
+            conv_s8.conv_geometry(xs, ws, *args)))
+
+
+# (x shape, Cout, kernel, padding): stride-2 convs of <= 4 channels
+S2D_CASES = {"stem_7x7_p3": ((2, 3, 20, 26), 8, 7, 3),
+             "3x3_p1_odd": ((1, 3, 11, 13), 5, 3, 1),
+             "4x4_p1_c2": ((1, 2, 9, 10), 4, 4, 1),
+             "1x1_c4": ((1, 4, 8, 8), 3, 1, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(S2D_CASES))
+def test_space_to_depth_form_equals_sums(case):
+    """A stride-2 conv of <= 4 channels as its space-to-depth form: the
+    stride-1 conv of ``s2d_weight`` on ``quantize_s2d_plain``'s input takes
+    the same int32 sums."""
+    shape, cout, k, pd = S2D_CASES[case]
+    rng = np.random.RandomState(len(case))
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3)
+    w = torch.from_numpy(rng.randint(-127, 128, (cout, shape[1], k, k))
+                         .astype(np.int8))
+    s_x = torch.tensor(np.float32(0.03))
+    cv = conv_s8.conv_geometry(shape, tuple(w.shape), 2, pd, 1, 1)
+    g = conv_s8.s2d_geometry(cv)
+    assert (g.sh, g.sw, g.ph, g.pw, g.KH) == (1, 1, 0, 0, -(-k // 2))
+    xs = conv_s8.quantize_s2d_plain(x, None, s_x, cv)
+    assert xs.shape == (shape[0], 1, g.H, g.W, 16)
+    assert not xs[..., 4 * shape[1]:].any()
+    got = conv_s8.sums_plain(xs[:, 0, ..., :4 * shape[1]].permute(
+        0, 3, 1, 2), conv_s8.s2d_weight(w), 1, 0, 1, 1)
+    want = conv_s8.sums_plain(conv_s8.quantize_plain(x, None, s_x), w, 2,
+                              pd, 1, 1)
+    assert torch.equal(got, want)
+
+
+# (x shape, w shape, stride, padding, dilation): the live-tap classes
+LIVE_CASES = {
+    "dil18_16rows": ((1, 8, 16, 44), (8, 8, 3, 3), 1, 18, 18),
+    "dil12_16rows": ((2, 8, 16, 44), (8, 8, 3, 3), 1, 12, 12),
+    "dil6_16rows": ((1, 8, 16, 44), (8, 8, 3, 3), 1, 6, 6),
+    "stem_7x7_s2": ((1, 3, 25, 31), (16, 3, 7, 7), 2, 3, 1),
+    "stride2_one_pixel": ((1, 8, 1, 1), (8, 8, 3, 3), 2, 2, 1),
+    "conv3d_s2": ((1, 8, 6, 5, 4), (8, 8, 3, 3, 3), 2, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_skipped_taps_are_the_off_map_ones(case):
+    """A tile skips exactly the taps with no in-map (tap, output pixel)
+    pair among its pixels, counted by ``chip_smoke.s8_products`` on the
+    tile's outputs and the one tap."""
+    import chip_smoke
+    xs, ws, st, pd, dl = LIVE_CASES[case]
+    cv = conv_s8.conv_geometry(xs, ws, st, pd, dl, 1)
+    p = conv_s8.plan_s8(cv)
+    n = len(xs) - 2
+    ks, sts = (cv.KD, cv.KH, cv.KW), (cv.sd, cv.sh, cv.sw)
+    pds, dls = (cv.pd, cv.ph, cv.pw), (cv.dd, cv.dh, cv.dw)
+    outs, box = (cv.Do, cv.Ho, cv.Wo), (p.TD, p.TY, p.TX)
+    skipped = 0
+    for mt in range(cv.N * p.tiles_d * p.tiles_y * p.tiles_x):
+        origin = conv_s8.tile_origin(cv, p, mt)[1:]
+        cnt = [min(o + b, O) - o for o, b, O in zip(origin, box, outs)]
+        live = set(conv_s8.live_taps(cv, p, mt))
+        for t in range(cv.KD * cv.KH * cv.KW):
+            k = (t // (cv.KH * cv.KW), t // cv.KW % cv.KH, t % cv.KW)
+            pad = [pds[i] - origin[i] * sts[i] - k[i] * dls[i]
+                   for i in range(3)]
+            pairs = chip_smoke.s8_products(
+                (1, 1) + tuple(xs[2:]), (1, 1) + (1,) * n,
+                (1, 1) + tuple(cnt[3 - n:]), sts[3 - n:], pad[3 - n:],
+                (1,) * n)
+            assert (t in live) == (pairs > 0), (mt, t)
+            skipped += t not in live
+    if case == "dil18_16rows":
+        assert skipped >= 6 * (cv.N * p.tiles_d * p.tiles_y * p.tiles_x) // 2
 
 
 # --------------------------------------------------------------------------
