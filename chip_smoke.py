@@ -114,6 +114,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
     ``tools.serving_bench`` (int8 by default) and ``tools.fidelity --int8
     --bn-warmup 3``.  Adds the entries ``conv_s8`` and ``conv_s8_bev``
     and ``int8_launches`` to K1-K4's.
+15. Multi-GPU training (``run_multi_gpu``, last; ``--multi-gpu`` alone):
+    the flagship train step at full width in float32 with K7 and
+    checkpointed stages, in three runs on the one card -- ``data=2``
+    (two processes over gloo, one sample each), ``space=2`` (two over
+    gloo, 3 cameras each) and a one-rank NCCL group -- each 2 steps, the
+    first of every run overlapping, the second timed alone; every rank
+    of a run holds the same state, and rank 0's first step is held
+    against the one-process step on the global batch (per-shard losses)
+    within ``MGPU_TOL`` (gradient relative L2, BatchNorm statistics,
+    loss, the share of first updates equal; the one-process step is read
+    against itself too, the noise floor); K7 82 + 69 launches a step on
+    every rank.  Prints one ``multi_gpu`` line (maxima, ms per step,
+    peak memory, the phase's seconds) and adds ``mgpu_launches`` to K7's
+    entries.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -1367,6 +1381,265 @@ def run_train(dev):
         f"2..{len(ms)}, CUDA events; first step {ms[0]:.1f} ms), peak "
         f"device memory {peak:.2f} GiB")
     return counts, steady, peak
+
+
+# the multi-GPU runs of run_multi_gpu: (data, space, backend); one H100,
+# so the two-rank groups run over gloo (NCCL refuses two ranks on one
+# device) and a one-rank group takes the NCCL path
+MGPU_RUNS = {"data2": (2, 1, "gloo"), "space2": (1, 2, "gloo"),
+             "nccl1": (1, 1, "nccl")}
+MGPU_STEPS = 2  # the first is compared, the second timed
+# The runs are float32 (K7 on its f32 kernel): in bf16 the random-weight
+# flagship's gradient is rounding-dominated -- two reduction orders of
+# one step gave gradients 1.15-1.23 apart in relative L2 -- which would
+# hide any fault.  Tolerances against the one-process step on the global
+# batch, set between the readings of this phase on an H100 80GB HBM3 at
+# 700 W (PERF.md): the gradient's relative L2 error (the one-process step
+# against itself 6.5e-4-1.6e-3, the float atomics' noise; the three runs
+# 2.5e-2-2.8e-2, nccl1 as far as the others: the global-statistics
+# BatchNorm against the local one; the BatchNorm backward without its
+# all-reduce 0.69-1.36, the flat-gradient sum dropped 0.76), the share
+# of parameters whose first update (Adam's lr * sign(g)) agrees to 1e-6
+# (0.981 against 0.65-0.78 under those faults), and the BatchNorm
+# running statistics' and the loss's relative error.
+MGPU_TOL = dict(grad_rel_l2=5e-2, stats_rel_l2=1e-4, params_within=0.95,
+                loss_rel=1e-4)
+
+
+def mgpu_batch(dev, model, cam, B):
+    """A fresh-stream global batch of ``B`` flagship samples, one scene
+    stream each."""
+    import torch
+    g = torch.Generator().manual_seed(11)
+    parts = [train_batch(dev, g, model, cam, True, 0) for _ in range(B)]
+    batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    batch["sequence_group_idx"] = torch.arange(B, dtype=torch.int32,
+                                               device=dev)
+    return batch
+
+
+def mgpu_rank(layout, rank, d, dev):
+    """One rank of a multi-GPU run of ``MGPU_RUNS[layout]``: MGPU_STEPS
+    flagship train steps (float32, K7, checkpointed stages) on this
+    rank's slice of the global batch, its K7 launches and ms per step;
+    then, the group closed, rank 0 runs the one-process step on the
+    global batch (per-shard losses) from the same state and compares.
+    Joins through a file store in ``d``; writes
+    ``d/<layout><rank>.json``."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from fbbev_tpu_torch import parallel
+    from fbbev_tpu_torch.models import FBOCC
+    from fbbev_tpu_torch.models.fbocc import init_temporal_state
+    from fbbev_tpu_torch.ops import pallas_conv
+    from fbbev_tpu_torch.train import Trainer, make_optimizer
+    data, space, backend = MGPU_RUNS[layout]
+    t0 = time.perf_counter()
+    parallel.distributed_init_if_needed(
+        dev.type, backend=backend, init_method=f"file://{d}/{layout}.store",
+        rank=rank, world_size=data * space)
+    mesh = parallel.make_mesh(data, space, dev)
+    model = FBOCC(dtype=torch.float32, pallas3x3=True, remat=True,
+                  device=dev, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, optimizer=make_optimizer(warmup_iters=0))
+    grads = []
+    update = trainer.optimizer.update
+    trainer.optimizer.update = (lambda g, *a, **k: (
+        grads.append(g.clone()) if len(grads) < 2 else None,
+        update(g, *a, **k))[1])
+    cam = flagship_rig(model.num_cams, *model.input_size)
+    batch = mgpu_batch(dev, model, cam, data)
+    local = parallel.shard_batch(batch, mesh)
+    grid = model.forward_projection.grid_size
+
+    def tstate(B):
+        return init_temporal_state(B, grid, model.history_cat_num,
+                                   model.single_bev_num_channels,
+                                   dtype=model.dtype, device=dev)
+    s0 = trainer.init_state()
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0))
+    sync()
+    build_s = time.perf_counter() - t0
+    pallas_conv.launches = pallas_conv.dgrad_launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ms, state = [], s0
+    with parallel.use_mesh(mesh):
+        for i in range(MGPU_STEPS):
+            if i == 1:
+                # the runs' first steps overlap on the card; each later
+                # step runs alone, in its run's turn
+                open(os.path.join(d, f"{layout}{rank}.ready"), "w").close()
+                wait_file(os.path.join(d, f"{layout}.go"))
+            sync()
+            t = time.perf_counter()
+            state, _, met = trainer.train_step(state, tstate(1), local,
+                                               do_history=False)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t))
+            if i == 0:
+                s1, m1 = state, {k: float(v) for k, v in met.items()}
+    launches = (pallas_conv.launches, pallas_conv.dgrad_launches)
+    out = dict(layout=layout, rank=rank, backend=backend,
+               device=str(dev), build_s=build_s, ms=ms, launches=launches,
+               metrics=m1, peak_gib=(torch.cuda.max_memory_allocated(dev)
+                                     / 2 ** 30 if dev.type == "cuda"
+                                     else None),
+               digest={k: hashlib.sha256(getattr(s1, k).cpu().numpy()
+                                         .tobytes()).hexdigest()
+                       for k in ("params", "batch_stats", "ema_params")})
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        # the one-process step on the global batch, from the same state
+        got_g = grads[0]
+        trainer.loss_shards = data
+        grads.clear()
+        t = time.perf_counter()
+        ref, _, mref = trainer.train_step(s0, tstate(data), batch,
+                                          do_history=False)
+        want_g = grads[0]
+        out["one_process_first_step_ms"] = 1e3 * (time.perf_counter() - t)
+        # the noise floor: the one-process step again, on the same inputs
+        grads.clear()
+        trainer.train_step(s0, tstate(data), batch, do_history=False)
+        again_g = grads[0]
+        rel = (lambda a, b: float(torch.linalg.vector_norm(a - b)
+                                  / torch.linalg.vector_norm(b)))
+        dp = (s1.params - ref.params).abs()
+        out["vs_one_process"] = dict(
+            grad_rel_l2=rel(got_g, want_g),
+            grad_rel_l2_floor=rel(again_g, want_g),
+            stats_rel_l2=rel(s1.batch_stats, ref.batch_stats),
+            ema_stats_rel_l2=rel(s1.ema_batch_stats, ref.ema_batch_stats),
+            params_within=float((dp <= 1e-6).float().mean()),
+            loss_rel=abs(m1["loss_total"] - float(mref["loss_total"]))
+            / abs(float(mref["loss_total"])),
+            grad_norm=(m1["grad_norm"], float(mref["grad_norm"])))
+    with open(os.path.join(d, f"{layout}{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+def wait_file(path, timeout=300.0):
+    t = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t > timeout:
+            raise TimeoutError(path)
+        time.sleep(0.02)
+
+
+def mgpu_children(d, argv, timeout=300.0):
+    """Every rank of every MGPU_RUNS run as a process (``argv(layout,
+    rank)``), all at once: their first steps overlap; once every rank is
+    ready, each run gets its turn (``<layout>.go``) for its timed step
+    and its rank 0's one-process step, and exits.  Kills them all at
+    ``timeout`` s or at the first failure; returns {layout: [rank 0's
+    dict, ...]} read from their JSON files."""
+    procs = {}
+    for layout, (data, space, _) in MGPU_RUNS.items():
+        for r in range(data * space):
+            log_f = open(os.path.join(d, f"{layout}{r}.log"), "w")
+            procs[layout, r] = (subprocess.Popen(
+                argv(layout, r), stdout=log_f, stderr=subprocess.STDOUT,
+                cwd=ROOT), log_f)
+    deadline = time.perf_counter() + timeout
+
+    def check():
+        bad = {k: p.returncode for k, (p, _) in procs.items()
+               if p.poll() not in (None, 0)}
+        if bad or time.perf_counter() > deadline:
+            raise AssertionError(f"multi-GPU runs failed: exit codes {bad}"
+                                 if bad else "multi-GPU runs timed out")
+    try:
+        while not all(os.path.exists(os.path.join(d, f"{lay}{r}.ready"))
+                      for lay, r in procs):
+            check()
+            time.sleep(0.05)
+        for layout in MGPU_RUNS:
+            open(os.path.join(d, f"{layout}.go"), "w").close()
+            while any(p.poll() is None for (lay, _), (p, _) in procs.items()
+                      if lay == layout):
+                check()
+                time.sleep(0.05)
+            check()
+    except AssertionError:
+        for (lay, r), (p, f) in procs.items():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+            with open(os.path.join(d, f"{lay}{r}.log")) as fh:
+                log(f"--- {lay} rank {r}:\n" + fh.read()[-4000:])
+        raise
+    runs = {}
+    for (lay, r), (p, f) in procs.items():
+        f.close()
+        with open(os.path.join(d, f"{lay}{r}.json")) as fh:
+            runs.setdefault(lay, []).append(json.load(fh))
+    return runs
+
+
+def check_mgpu(runs, launches=None):
+    """Every rank of a run holds the same state, rank 0's within
+    MGPU_TOL of the one-process step, and K7 launched on every rank
+    (``launches`` times, forward and dgrad, where given)."""
+    for layout, ranks in runs.items():
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            if r["digest"] != r0["digest"]:
+                raise AssertionError(f"{layout}: rank {r['rank']}'s state "
+                                     "differs from rank 0's")
+        v = r0["vs_one_process"]
+        bad = [k for k in ("grad_rel_l2", "stats_rel_l2", "loss_rel")
+               if not v[k] <= MGPU_TOL[k]]
+        if not v["params_within"] >= MGPU_TOL["params_within"]:
+            bad.append("params_within")
+        if bad:
+            raise AssertionError(f"{layout}: {bad} out of tolerance: {v}")
+        for r in ranks:
+            if min(r["launches"]) <= 0 or (
+                    launches and tuple(r["launches"]) != launches):
+                raise AssertionError(f"{layout} rank {r['rank']}: K7 "
+                                     f"launches {r['launches']}, expected "
+                                     f"{launches or 'some'}")
+
+
+def run_multi_gpu(dev):
+    """Multi-GPU training (``fbbev_tpu_torch.parallel``) on the one card:
+    ``data=2`` (two processes over gloo, one sample each), ``space=2``
+    (two processes over gloo, 3 cameras each) and a one-rank NCCL group,
+    each MGPU_STEPS float32 flagship train steps with K7 in processes of
+    their own (``mgpu_children``: the first steps overlap, the timed ones
+    take turns; all killed after 300 s), rank 0's first step held against
+    the one-process step on the global batch.  Prints one ``multi_gpu``
+    line; returns {layout: (K7 forward, dgrad launches) of rank 0}."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    per_pass = sum(c for _, c in K7_SHAPES)
+    want = (MGPU_STEPS * (per_pass + K7_RESNET_LAUNCHES),
+            MGPU_STEPS * per_pass)
+    with tempfile.TemporaryDirectory() as d:
+        runs = mgpu_children(d, lambda layout, r: [
+            sys.executable, os.path.abspath(__file__), "--mgpu-rank",
+            layout, str(r), d])
+    for layout, rk in runs.items():
+        log(f"multi-GPU {layout}: {rk[0]}")
+    check_mgpu(runs, want)
+    line = {layout: dict(
+        backend=rk[0]["backend"], ranks=len(rk),
+        ms_per_step=[r["ms"][-1] for r in rk],
+        first_step_ms=[r["ms"][0] for r in rk],
+        peak_gib=[r["peak_gib"] for r in rk],
+        one_process_first_step_ms=rk[0]["one_process_first_step_ms"],
+        k7_launches=rk[0]["launches"], **rk[0]["vs_one_process"])
+        for layout, rk in runs.items()}
+    log(json.dumps({"multi_gpu": line, "tolerance": MGPU_TOL,
+                    "phase_s": time.perf_counter() - t0}))
+    return {layout: rk[0]["launches"] for layout, rk in runs.items()}
 
 
 # the port's route arguments of the kernel-routed configurations, and the
@@ -3836,6 +4109,13 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--mgpu-rank"]:
+        # one rank of run_multi_gpu's two-rank groups (a child process)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mgpu_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4],
+                  torch.device("cuda", 0))
+        return 0
     from fbbev_tpu_torch.ops import _cuda
     log(nvidia_smi_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3924,6 +4204,11 @@ def main():
         run_int8(dev)
         log(f"chip_smoke --int8: {time.perf_counter() - T0:.1f} s")
         return 0
+    if "--multi-gpu" in sys.argv[1:]:
+        # the multi-GPU training phase alone (run_multi_gpu)
+        run_multi_gpu(dev)
+        log(f"chip_smoke --multi-gpu: {time.perf_counter() - T0:.1f} s")
+        return 0
     if "--config" in sys.argv[1:]:
         # the config-built entry alone (run_config)
         run_config(dev)
@@ -4006,6 +4291,12 @@ def main():
         k["launches"] = vov_stream[k["name"][len("vov_"):]]
     for k in vov_k7:
         k["launches"] = vov_train[k["name"][len("vov_"):]]
+    # multi-GPU training: each run's K7 launches on rank 0, with the
+    # counts set to 0 just before its steps
+    mgpu = run_multi_gpu(dev)
+    for k in k7:
+        i = int(k["name"] == "conv3x3_dgrad")
+        k["mgpu_launches"] = {layout: c[i] for layout, c in mgpu.items()}
     kernels[3].update(t1_ms=k1_t1["ms"], t1_graph_ms=k1_t1["graph_ms"],
                       t1_plain_ms=k1_t1["plain_ms"],
                       t1_bound_ms=k1_t1["bound_ms"],

@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fbbev_tpu_torch import geometry
+from fbbev_tpu_torch import geometry, parallel
 from fbbev_tpu_torch.ops import deform_attn, pallas_sample
 from fbbev_tpu_torch.ops.deform_attn import bilinear_sample_matrix
 
@@ -176,7 +176,9 @@ def spatial_ca_static_terms(ref_cam, per_cam_mask, query_depth, dbound,
     B, N, Q, Z, _ = ref_cam.shape
     lo, _hi, step = dbound
     valid = per_cam_mask.any(-1)
-    count = valid.float().sum(1).clamp(min=1.0)
+    # the cameras of every 'space' rank of an active mesh count
+    count = parallel.all_reduce_sum(valid.float().sum(1),
+                                    "space").clamp(min=1.0)
     K = Q if max_queries_per_cam is None else min(max_queries_per_cam, Q)
     idx = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)[
         ..., :K]
@@ -230,6 +232,8 @@ class DepthAwareSpatialCrossAttention(nn.Module):
                + idx).reshape(-1)
         slots = torch.zeros(B * Q, C, dtype=out.dtype, device=out.device)
         slots.index_add_(0, seg, out.reshape(B * N * K, C))
+        # under a mesh, the other 'space' ranks' cameras add in
+        slots = parallel.all_reduce_sum(slots, "space")
         slots = slots.reshape(B, Q, C) / t["count"][..., None]
         return self.output_proj(slots.to(query.dtype)) + query
 

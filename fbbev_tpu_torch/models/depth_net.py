@@ -136,10 +136,12 @@ def downsample_gt_depth(gt_depth: torch.Tensor, downsample: int,
 
 def depth_loss(gt_depth: torch.Tensor, depth_pred: torch.Tensor,
                downsample: int, depth_bounds: Sequence[float],
-               loss_weight: float = 1.0) -> torch.Tensor:
+               loss_weight: float = 1.0, count_sum=None) -> torch.Tensor:
     """Binary cross entropy of the predicted depth distribution ``(B, N,
     D, h, w)`` against the one-hot GT over foreground pixels, float32.
-    Counterpart of ``depth_net.py:202``."""
+    Counterpart of ``depth_net.py:202``.  ``count_sum`` (under a mesh:
+    the sum over every rank) turns the foreground count into the one
+    the mean divides by, making the result this rank's share."""
     D = depth_pred.shape[2]
     labels = downsample_gt_depth(gt_depth, downsample, depth_bounds, D)
     preds = depth_pred.permute(0, 1, 3, 4, 2).reshape(-1, D).float()
@@ -147,4 +149,7 @@ def depth_loss(gt_depth: torch.Tensor, depth_pred: torch.Tensor,
     p = preds.clamp(1e-7, 1.0 - 1e-7)
     bce = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
     bce = (bce * fg[:, None]).sum()
-    return loss_weight * bce / torch.clamp(fg.sum().float(), min=1.0)
+    count = fg.sum().float()
+    if count_sum is not None:
+        count = count_sum(count.detach().clone())
+    return loss_weight * bce / torch.clamp(count, min=1.0)

@@ -34,7 +34,8 @@ from fbbev_tpu_torch.models.centerpoint_head import CenterHead, SeparateHead
 from fbbev_tpu_torch.models.depth_net import CM_DepthNet, get_mlp_input
 from fbbev_tpu_torch.models.fpn import CustomFPN
 from fbbev_tpu_torch.models.fpn3d import FPN3D
-from fbbev_tpu_torch.models.layers import RingCatConvBN, TimeEmbedConvBN
+from fbbev_tpu_torch.models.layers import (BatchNorm, RingCatConvBN,
+                                           TimeEmbedConvBN)
 from fbbev_tpu_torch.models.lss import LSSViewTransformer3D
 from fbbev_tpu_torch.models.occ_head import OccHead
 from fbbev_tpu_torch.models.resnet3d import CustomResNet3D
@@ -242,6 +243,12 @@ class FBOCC(nn.Module):
         self.pts_bbox_head = (CenterHead(
             voxel_out_channels * self.forward_projection.grid_size[2],
             pallas3x3=pallas3x3) if use_detection_head else None)
+        # the per-camera stage: under a mesh its BatchNorms take the
+        # statistics of every rank's cameras (``layers.batch_norm``)
+        for stage in (self.img_backbone, self.img_neck, self.depth_net):
+            for m in stage.modules():
+                if isinstance(m, BatchNorm):
+                    m.camera_split = True
         init_weights(self, generator)
         self.to(device=device)
         self.cast(dtype)

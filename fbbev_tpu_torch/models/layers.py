@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from fbbev_tpu_torch import parallel
 from fbbev_tpu_torch.ops import pallas_conv
 from fbbev_tpu_torch.ops import pallas_conv3d as conv3d_k6
 
@@ -143,13 +144,29 @@ def batch_norm(m: "BatchNorm", x: torch.Tensor, dim: int = 1
     the running variance with the unbiased batch variance v_u = v * n /
     (n - 1); that update is corrected here to the biased one:
     ``0.9 r + 0.1 v = r' - (r' - 0.9 r) / n`` for its result r'.  Like
-    ``nn.BatchNorm``, training needs more than one value per channel."""
+    ``nn.BatchNorm``, training needs more than one value per channel.
+
+    Under an active mesh the batch statistics are those of every rank
+    that holds other images (``m.camera_split``: the image stage) or
+    other samples (the BEV stages): ``parallel.sync_batch_norm``, the
+    global-batch statistics of JAX's jit over a sharded batch."""
     move = dim % x.ndim != 1
     if move:
         x = x.movedim(dim, 1)
+    axis = (parallel.bn_axis(parallel.active_mesh(), m.camera_split)
+            if m.training else None)
     if not m.training:
         y = F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
                          False, 0.0, m.eps)
+    elif axis is not None:
+        y, mean, var = parallel.sync_batch_norm(x, m.weight, m.bias, m.eps,
+                                                axis)
+        if m.update_stats:
+            with torch.no_grad():
+                m.running_mean.mul_(1.0 - m.momentum).add_(
+                    mean, alpha=m.momentum)
+                m.running_var.mul_(1.0 - m.momentum).add_(
+                    var, alpha=m.momentum)
     else:
         # copies: autograd keeps the tensors it was given unmodified, and a
         # checkpointed recomputation saves the same tensors as the forward
@@ -170,6 +187,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     semantics; ``nn.BatchNorm{1,2,3}d``'s parameters and buffers."""
 
     update_stats = True  # off while a checkpointed stage recomputes
+    camera_split = False  # in the per-camera image stage (FBOCC sets it)
 
     def forward(self, x):
         return batch_norm(self, x, 1)

@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from fbbev_tpu_torch import geometry
+from fbbev_tpu_torch import geometry, parallel
 from fbbev_tpu_torch.ops.bev_pool import lss_voxel_pool
 
 
@@ -36,6 +36,9 @@ class LSSViewTransformer3D:
         """context (B, N, fH, fW, C); depth (B, N, D, fH, fW) -> (B, Y, X,
         Z, C) float32 voxel features."""
         coor = geometry.frustum_to_ego(torch.from_numpy(self.frustum), cam)
-        return lss_voxel_pool(coor, depth.float(), context.float(),
-                              self.grid_lower, self.grid_interval,
-                              self.grid_size)
+        # under a mesh with a 'space' axis, this rank's cameras' partial
+        # sum, summed over the axis (JAX ``lss.py::_pool``'s psum)
+        return parallel.all_reduce_sum(
+            lss_voxel_pool(coor, depth.float(), context.float(),
+                           self.grid_lower, self.grid_interval,
+                           self.grid_size), "space")

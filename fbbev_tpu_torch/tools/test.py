@@ -10,6 +10,13 @@ Usage:
     python -m fbbev_tpu_torch.tools.test <config> --work-dir <dir> \\
         [--max-samples N] [--no-ema] [--out-csv results.csv] \\
         [--cfg-options key=value ...] [--device cuda|cpu]
+
+On several GPUs, one process per rank (``--space S`` splits each
+sample's cameras over S ranks; the confusion matrix is summed over the
+data ranks and rank 0 prints and writes the results):
+
+    torchrun --standalone --nproc_per_node 2 -m fbbev_tpu_torch.tools.test \
+        <config> --work-dir <dir> --devices 2 [--space 2]
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+
+import torch
 
 
 def parse_args(argv=None):
@@ -29,6 +38,11 @@ def parse_args(argv=None):
     p.add_argument("--out-csv", default=None,
                    help="append the results (per-class IoU, mAP, NDS, "
                    "...) to a results.csv")
+    p.add_argument("--devices", default=None,
+                   help="mesh size: the number of ranks (torchrun "
+                        "processes) or 'all'")
+    p.add_argument("--space", type=int, default=None,
+                   help="camera-parallel mesh axis size")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -42,10 +56,20 @@ def main(argv=None):
     from fbbev_tpu_torch.train.loop import evaluate
 
     cfg = Config.fromfile(args.config)
-    cfg.merge_from_options(dict(kv.split("=", 1) for kv in args.cfg_options))
+    overrides = dict(kv.split("=", 1) for kv in args.cfg_options)
+    for flag in ("devices", "space"):
+        v = getattr(args, flag)
+        if v is not None:
+            overrides[flag] = str(v)
+    cfg.merge_from_options(overrides)
+    if args.devices is not None or args.space is not None:
+        from fbbev_tpu_torch.parallel import distributed_init_if_needed
+        distributed_init_if_needed(args.device)
     results = evaluate(cfg, max_samples=args.max_samples,
                        use_ema=not args.no_ema, work_dir=args.work_dir,
                        device=args.device)
+    if torch.distributed.is_initialized() and torch.distributed.get_rank():
+        return results
     for k, v in results.items():
         print(f"{k}: {v}")
     if args.out_csv:

@@ -1,5 +1,5 @@
-"""Train an FB-OCC model from a config file on one device.  Counterpart of
-the JAX package's ``tools/train.py``, with its flags and ``--device``.
+"""Train an FB-OCC model from a config file.  Counterpart of the JAX
+package's ``tools/train.py``, with its flags and ``--device``.
 
 Usage:
 
@@ -11,8 +11,15 @@ Usage:
 Checkpoints (about 1.1 GB each at the flagship, the newest 3 kept) and
 logs go under ``--work-dir``, else the config's ``work_dir`` relative to
 the working directory: give a directory outside the source tree.
-``--devices`` / ``--space`` (a device mesh) raise: multi-GPU training is
-ROADMAP M14.
+
+On several GPUs, one process per rank (``data.batch_size`` is the global
+batch; ``--space S`` splits each sample's cameras over S ranks):
+
+    torchrun --standalone --nproc_per_node 4 -m fbbev_tpu_torch.tools.train \
+        <config> --work-dir <dir> --devices 4 [--space 2]
+
+(``--devices all``: every rank; NCCL on the card, gloo with
+``--device cpu``).
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ def parse_args(argv=None):
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--devices", default=None,
-                   help="mesh size (ROADMAP M14; raises)")
+                   help="mesh size: the number of ranks (torchrun "
+                        "processes) or 'all'")
     p.add_argument("--space", type=int, default=None,
-                   help="camera/model-parallel mesh axis size (M14; raises)")
+                   help="camera-parallel mesh axis size (divides the "
+                        "ranks and the cameras)")
     p.add_argument("--load-from", default=None,
                    help="warm-start checkpoint (.pth or a JAX .npz)")
     p.add_argument("--load-img-from", default=None,
@@ -54,6 +63,9 @@ def main(argv=None):
         if v is not None:
             overrides[flag] = str(v)
     cfg.merge_from_options(overrides)
+    if args.devices is not None or args.space is not None:
+        from fbbev_tpu_torch.parallel import distributed_init_if_needed
+        distributed_init_if_needed(args.device)
     return train(cfg, max_iters=args.max_iters, work_dir=args.work_dir,
                  resume=args.resume, device=args.device)
 

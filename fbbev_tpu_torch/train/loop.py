@@ -11,12 +11,20 @@ The eval loop reproduces ``CustomDistEvalHook`` semantics
 weights, streams scenes contiguously per batch slot, and runs with a
 fresh temporal state that is discarded afterwards.
 
-Everything runs on one device, ``cuda`` unless the caller passes
-``device="cpu"``; a config that asks for a mesh (``devices``, ``space``)
-raises (multi-GPU training is ROADMAP M14).  The kernel routes of
-``build_model`` (``pallas3x3=True``, ...), which the JAX package takes
-from environment variables, are keyword arguments of :func:`train` and
-:func:`evaluate`; no config sets them.
+Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
+A config that asks for a mesh (``devices``: the number of ranks, ``"all"``
+every rank; ``space``: the camera split, see ``fbbev_tpu_torch.parallel``)
+runs as one of that many processes (``torchrun``, or a process group
+initialised by the caller), each on its own device
+(``cuda:{LOCAL_RANK % device_count}``).  ``data.batch_size`` is then the
+global batch: each data index reads its own slots of it from the sampler
+(``world_size`` = data, ``rank`` = data index; the ``space`` ranks of a
+data index read the same ones) and keeps its own temporal state.  Rank 0
+alone writes checkpoints and metric sinks; every rank restores.
+
+The kernel routes of ``build_model`` (``pallas3x3=True``, ...), which the
+JAX package takes from environment variables, are keyword arguments of
+:func:`train` and :func:`evaluate`; no config sets them.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from fbbev_tpu_torch import parallel
 from fbbev_tpu_torch.config import Config
 from fbbev_tpu_torch.data import (
     EvalGroupStreamSampler, InfiniteGroupStreamSampler, SyntheticClipDataset,
@@ -37,7 +46,7 @@ from fbbev_tpu_torch.evaluation import (
     DetectionMetric, MIoUMetric, occ_pred_to_cvpr_format)
 from fbbev_tpu_torch.models.centerpoint_head import (
     NUSCENES_CLASSES, NUSCENES_TASKS, centerpoint_decode)
-from fbbev_tpu_torch.models.builder import build_detector
+from fbbev_tpu_torch.models.builder import build_detector, detector_kwargs
 from fbbev_tpu_torch.models.fbocc import init_temporal_state
 from fbbev_tpu_torch.train.checkpoints import (
     latest_step, restore_checkpoint, save_checkpoint)
@@ -112,18 +121,67 @@ def batch_iterator(dataset, sampler,
     return (collate([dataset[i] for i in idxs]) for idxs in sampler)
 
 
-def _single_device(cfg: Config) -> None:
-    """Raise for a config that asks for a device mesh."""
-    if cfg.get("devices") or int(cfg.get("space") or 1) != 1:
-        raise NotImplementedError(
+def mesh_layout(cfg: Config, world: Optional[int] = None):
+    """(data, space) of the mesh ``cfg`` asks for, or None (one device):
+    ``devices`` ranks (``"all"`` or unset: ``world``, else the process
+    group's or ``torchrun``'s ``WORLD_SIZE``), ``space`` of them
+    splitting each sample's cameras.  Raises ``ValueError`` where ``space`` does not
+    divide the ranks or the model's cameras."""
+    devices, space = cfg.get("devices"), int(cfg.get("space") or 1)
+    if not devices and space == 1:
+        return None
+    if devices in (None, "", "all"):
+        devices = world or (torch.distributed.get_world_size()
+                            if torch.distributed.is_initialized()
+                            else int(os.environ.get("WORLD_SIZE", "1")))
+    devices = int(devices)
+    model_cfg = (cfg.model.to_dict() if hasattr(cfg.model, "to_dict")
+                 else dict(cfg.model))
+    cams = int(detector_kwargs(model_cfg).get("num_cams", 6))
+    if space < 1 or devices % space or cams % space:
+        raise ValueError(f"space={space} must divide devices={devices} "
+                         f"and the model's {cams} cameras")
+    return devices // space, space
+
+
+def make_train_mesh(cfg: Config, device="cuda"):
+    """The ('data', 'space') mesh of :func:`mesh_layout` over the process
+    group (initialised from the ``torchrun`` environment if need be), or
+    None.  The active mesh when it has that layout."""
+    layout = mesh_layout(cfg)
+    if layout is None:
+        return None
+    if not parallel.distributed_init_if_needed(device):
+        raise RuntimeError(
             f"devices={cfg.get('devices')!r}, space={cfg.get('space')!r}: "
-            "multi-GPU training and evaluation are ROADMAP M14; the port "
-            "runs on one device")
+            "a mesh of N ranks runs as N processes (torchrun "
+            "--nproc_per_node N -m fbbev_tpu_torch.tools.train ...)")
+    data, space = mesh_layout(cfg, torch.distributed.get_world_size())
+    if data * space != torch.distributed.get_world_size():
+        raise ValueError(f"devices={data * space}, but the process group "
+                         f"has {torch.distributed.get_world_size()} ranks")
+    mesh = parallel.active_mesh()
+    if mesh is not None and mesh.shape == {"data": data, "space": space}:
+        return mesh
+    return parallel.make_mesh(data, space, parallel.local_device(device))
 
 
-def _put_batch(batch: Dict[str, np.ndarray], device
+def _local_batch_size(cfg: Config, mesh) -> int:
+    """This data index's share of the global ``data.batch_size``."""
+    batch_size = cfg.data.get("batch_size", 2)
+    data = 1 if mesh is None else mesh.data.size
+    if batch_size % data:
+        raise ValueError(f"data={data} does not divide the global batch "
+                         f"of {batch_size}")
+    return batch_size // data
+
+
+def _put_batch(batch: Dict[str, np.ndarray], device, mesh=None
                ) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    """This rank's cameras of a host batch, on ``device``."""
+    batch = parallel.split_cameras(batch, mesh)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 def _sinks(cfg: Config, work_dir: str):
@@ -159,18 +217,22 @@ def train(cfg: Config, max_iters: Optional[int] = None,
     ``load_img_from`` warm-start.  Checkpoints every
     ``checkpoint_interval`` steps and at the end, metric records every
     ``log_interval`` (CSV, optionally TensorBoard / webhook), an EMA
-    evaluation every ``eval_interval``.  Returns ``{"state", "history",
-    "trainer", "model", "mesh": None}``."""
-    _single_device(cfg)
-    dev = torch.device(device)
+    evaluation every ``eval_interval``.  With a mesh (the module
+    docstring) every rank runs this.  Returns ``{"state", "history",
+    "trainer", "model", "mesh"}``."""
+    mesh = make_train_mesh(cfg, device)
+    dev = mesh.device if mesh is not None else torch.device(device)
+    lead = mesh is None or mesh.rank == 0
     seed = int(cfg.get("seed", 0))
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(seed),
                         **routes)
     dataset = build_dataset(cfg, "train")
-    batch_size = cfg.data.get("batch_size", 2)
-    sampler = InfiniteGroupStreamSampler(dataset.flag, batch_size,
-                                         seed=seed)
+    batch_size = _local_batch_size(cfg, mesh)
+    sampler = InfiniteGroupStreamSampler(
+        dataset.flag, batch_size,
+        world_size=1 if mesh is None else mesh.data.size,
+        rank=0 if mesh is None else mesh.data.index, seed=seed)
     it = batch_iterator(dataset, sampler,
                         num_workers=cfg.data.get("workers", 0))
 
@@ -186,7 +248,7 @@ def train(cfg: Config, max_iters: Optional[int] = None,
     tstate = init_temporal_state(
         batch_size, _grid_size(model), model.history_cat_num,
         model.single_bev_num_channels, dtype=model.dtype, device=dev)
-    batch = _put_batch(next(it), dev)
+    batch = _put_batch(next(it), dev, mesh)
     state = trainer.init_state()
     work_dir = work_dir or cfg.get("work_dir", "work_dirs")
     ckpt_dir = os.path.join(work_dir, "ckpts")
@@ -198,53 +260,61 @@ def train(cfg: Config, max_iters: Optional[int] = None,
             state, trainer, cfg.get("load_from"),
             load_img_from=cfg.get("load_img_from"),
             revise_keys=cfg.get("revise_keys"))
+    state = parallel.replicate(state, mesh)
 
     total = max_iters if max_iters is not None else cfg.get("max_iters")
     temporal_start = cfg.get("temporal_start_iter", 0)
     log_interval = cfg.get("log_interval", 50)
     ckpt_interval = cfg.get("checkpoint_interval", 1000)
     eval_interval = cfg.get("eval_interval")
-    sinks = _sinks(cfg, work_dir)
+    sinks = _sinks(cfg, work_dir) if lead else []
     history = []
     t0 = time.perf_counter()
     step0 = int(state.step)
     prev_mismatch = None
-    for i in range(step0, total):
-        state, tstate, metrics = trainer.train_step(
-            state, tstate, batch, do_history=i >= temporal_start)
-        # the next host batch is made while the device runs the step; the
-        # stream/slot contract is checked every iteration on the PREVIOUS
-        # step's metrics (finished by then: the batch's copy to the device
-        # waits for the step)
-        next_batch = _put_batch(next(it), dev)
-        if prev_mismatch is not None:
-            _check_seq_contract(prev_mismatch)
-        prev_mismatch = metrics["seq_mismatch"]
-        if (i + 1) % log_interval == 0 or i + 1 == total:
-            _check_seq_contract(prev_mismatch)
-            m = {k: float(v) for k, v in metrics.items()}
-            m["iter"] = i + 1
-            m["time_per_iter"] = (time.perf_counter() - t0) / (i + 1 - step0)
-            history.append(m)
-            _emit(m, sinks)
-        if (i + 1) % ckpt_interval == 0 or i + 1 == total:
-            save_checkpoint(ckpt_dir, state)
-        # mid-training streaming eval (the reference runs
-        # CustomDistEvalHook every ``eval_interval`` iters during
-        # training, occupancy config :359-394): EMA weights, fresh
-        # temporal state, full val sweep (or eval_max_samples)
-        if eval_interval and (i + 1) % eval_interval == 0 \
-                and i + 1 != total:
-            em = evaluate(cfg, state=state, trainer=trainer,
-                          max_samples=cfg.get("eval_max_samples"),
-                          use_ema=True, work_dir=work_dir, device=dev)
-            em = {f"val_{k}": v for k, v in em.items()}
-            em["iter"] = i + 1
-            _emit(em, sinks)
-            history.append(em)
-        batch = next_batch
+    with parallel.use_mesh(mesh):
+        for i in range(step0, total):
+            state, tstate, metrics = trainer.train_step(
+                state, tstate, batch, do_history=i >= temporal_start)
+            # the next host batch is made while the device runs the step;
+            # the stream/slot contract is checked every iteration on the
+            # PREVIOUS step's metrics (finished by then: the batch's copy
+            # to the device waits for the step; under a mesh the count is
+            # every rank's, so every rank raises alike)
+            next_batch = _put_batch(next(it), dev, mesh)
+            if prev_mismatch is not None:
+                _check_seq_contract(prev_mismatch)
+            prev_mismatch = metrics["seq_mismatch"]
+            if (i + 1) % log_interval == 0 or i + 1 == total:
+                _check_seq_contract(prev_mismatch)
+                m = {k: float(v) for k, v in metrics.items()}
+                m["iter"] = i + 1
+                m["time_per_iter"] = ((time.perf_counter() - t0)
+                                      / (i + 1 - step0))
+                history.append(m)
+                if lead:
+                    _emit(m, sinks)
+            if (i + 1) % ckpt_interval == 0 or i + 1 == total:
+                if lead:
+                    save_checkpoint(ckpt_dir, state)
+                parallel.barrier(mesh)
+            # mid-training streaming eval (the reference runs
+            # CustomDistEvalHook every ``eval_interval`` iters during
+            # training, occupancy config :359-394): EMA weights, fresh
+            # temporal state, full val sweep (or eval_max_samples)
+            if eval_interval and (i + 1) % eval_interval == 0 \
+                    and i + 1 != total:
+                em = evaluate(cfg, state=state, trainer=trainer,
+                              max_samples=cfg.get("eval_max_samples"),
+                              use_ema=True, work_dir=work_dir, device=device)
+                em = {f"val_{k}": v for k, v in em.items()}
+                em["iter"] = i + 1
+                if lead:
+                    _emit(em, sinks)
+                history.append(em)
+            batch = next_batch
     return {"state": state, "history": history, "trainer": trainer,
-            "model": model, "mesh": None}
+            "model": model, "mesh": mesh}
 
 
 def _check_seq_contract(mismatch) -> None:
@@ -279,9 +349,14 @@ def evaluate(cfg: Config, state=None, trainer=None,
     merge through the shared confusion matrix and detection metric -- the
     reference never un-flips predictions, its ``aug_test`` is
     unreachable).
+
+    With a mesh every rank runs this: each data index streams its own
+    slots (at most ``ceil(max_samples / data)`` samples), the confusion
+    matrix and ``n_samples`` are summed over ``data`` (JAX ``loop.py:
+    345-355``); the detection metric stays each rank's own, as there.
     """
-    _single_device(cfg)
-    dev = torch.device(device)
+    mesh = make_train_mesh(cfg, device)
+    dev = mesh.device if mesh is not None else torch.device(device)
     if trainer is None:
         trainer = Trainer(build_model(
             cfg, device=dev,
@@ -289,7 +364,10 @@ def evaluate(cfg: Config, state=None, trainer=None,
             **routes))
     model = trainer.model
     dataset = build_dataset(cfg, "val")
-    batch_size = cfg.data.get("batch_size", 2)
+    batch_size = _local_batch_size(cfg, mesh)
+    data = 1 if mesh is None else mesh.data.size
+    if max_samples is not None:
+        max_samples = -(-max_samples // data)
     if state is None:
         ckpt_dir = os.path.join(
             work_dir or cfg.get("work_dir", "work_dirs"), "ckpts")
@@ -309,19 +387,33 @@ def evaluate(cfg: Config, state=None, trainer=None,
                          flip_dy=bool(v & 1)) for v in range(8)]
     else:
         variants = [None]
-    for tta_cfg in variants:
-        if tta_cfg is not None:
-            dataset.tta_config = tta_cfg
-        sampler = EvalGroupStreamSampler(dataset.flag, batch_size)
-        tstate = init_temporal_state(
-            batch_size, _grid_size(model), model.history_cat_num,
-            model.single_bev_num_channels, dtype=model.dtype, device=dev)
-        n_done += _eval_pass(
-            sampler, dataset, trainer, state, tstate, metric, use_ema, dev,
-            None if max_samples is None else max_samples - n_done,
-            det_metric, decode_fn)
-        if max_samples is not None and n_done >= max_samples:
-            break
+    with parallel.use_mesh(mesh):
+        for tta_cfg in variants:
+            if tta_cfg is not None:
+                dataset.tta_config = tta_cfg
+            sampler = EvalGroupStreamSampler(
+                dataset.flag, batch_size, world_size=data,
+                rank=0 if mesh is None else mesh.data.index)
+            tstate = init_temporal_state(
+                batch_size, _grid_size(model), model.history_cat_num,
+                model.single_bev_num_channels, dtype=model.dtype,
+                device=dev)
+            n_done += _eval_pass(
+                sampler, dataset, trainer, state, tstate, metric, use_ema,
+                dev, None if max_samples is None else max_samples - n_done,
+                det_metric, decode_fn, mesh)
+            if max_samples is not None and n_done >= max_samples:
+                break
+    if mesh is not None:
+        # int64 counts summed over the data indices (the space ranks of
+        # one hold the same), the one collective of the evaluation across
+        # data indices
+        counts = torch.from_numpy(np.append(metric.hist.ravel(), n_done)
+                                  ).to(dev)
+        parallel.all_reduce_(counts, mesh.data)
+        counts = counts.cpu().numpy()
+        metric.hist = counts[:-1].reshape(metric.hist.shape)
+        n_done = int(counts[-1])
     results = metric.count_miou() if model.use_occupancy_head else {}
     if det_metric is not None:
         results.update(det_metric.compute())
@@ -346,7 +438,8 @@ def _make_decode_fn(model):
 
 
 def _eval_pass(sampler, dataset, trainer, state, tstate, metric, use_ema,
-               device, max_samples, det_metric=None, decode_fn=None) -> int:
+               device, max_samples, det_metric=None, decode_fn=None,
+               mesh=None) -> int:
     """One streaming pass of ``sampler`` into ``metric`` (and, with the
     detection head, ``det_metric`` through ``decode_fn``): the number of
     valid samples evaluated (at most about ``max_samples``)."""
@@ -355,7 +448,7 @@ def _eval_pass(sampler, dataset, trainer, state, tstate, metric, use_ema,
         samples = [dataset[i] for i in idxs]
         batch = collate(samples)
         tb = _put_batch({k: v for k, v in batch.items()
-                         if k not in _HOST_ONLY}, device)
+                         if k not in _HOST_ONLY}, device, mesh)
         outputs, tstate = trainer.eval_step(state, tstate, tb,
                                             use_ema=use_ema)
         # (B, Y, X, Z, classes) float32 logits to the host, where the

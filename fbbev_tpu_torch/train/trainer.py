@@ -20,6 +20,17 @@ formulas (``clip_grad_norm_`` differs: it adds 1e-6 to the norm and
 always scales); ``frozen`` zeroes the updates of whole top-level modules,
 keeps them out of the clipping norm and keeps their BatchNorm statistics,
 as ``optax.multi_transform`` with ``set_to_zero`` does there.
+
+Under an active mesh (``fbbev_tpu_torch.parallel``) every rank computes
+its share of the global objective: the occupancy and detection losses of
+its own batch rows over the world size (meaned over the data shards, as
+JAX's ``_occ_losses_sharded`` and the reference's DDP ranks; the ``space``
+ranks of a data shard hold copies of it), the depth loss's sum over its
+own cameras over the foreground count of every rank (the global voxel
+mean).  One sum over the world of the flat gradient, with the losses
+packed behind it, then gives every rank the global step's gradient and
+metrics before the clip, so parameters, optimizer state and EMA stay
+equal on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from fbbev_tpu_torch import parallel
 from fbbev_tpu_torch.models import losses as loss_lib
 from fbbev_tpu_torch.models.centerpoint_head import (
     NUSCENES_CLASSES, NUSCENES_TASKS, centerpoint_loss, centerpoint_targets)
@@ -141,8 +153,13 @@ class Trainer:
                  ema_base_decay: float = 0.999, ema_init_updates: int = 0,
                  depth_loss_weight: float = 1.0, num_classes: int = 19,
                  use_depth_supervision: Optional[bool] = None,
-                 frozen: Tuple[str, ...] = (), lovasz: str = "hist"):
+                 frozen: Tuple[str, ...] = (), lovasz: str = "hist",
+                 loss_shards: int = 1):
         self.model = model
+        # > 1: the occupancy and detection losses of each of that many
+        # equal batch slices, meaned -- in one process, what ``data``
+        # ranks of a mesh compute (JAX ``Trainer._occ_losses_sharded``)
+        self.loss_shards = loss_shards
         self.optimizer = optimizer or make_optimizer()
         self.ema_base_decay = ema_base_decay
         self.ema_init_updates = ema_init_updates
@@ -213,31 +230,61 @@ class Trainer:
                           ema_updates=float(self.ema_init_updates))
 
     # ------------------------------------------------------------------
+    def _sharded(self, fn, *args):
+        """``fn(*args)`` (a dict of losses), or with ``loss_shards`` k > 1
+        the mean of ``fn`` on each of k equal slices of the batch axis of
+        every tensor in ``args`` (lists and dicts of them too)."""
+        k = self.loss_shards
+        if k == 1:
+            return fn(*args)
+
+        def rows(tree, i):
+            if isinstance(tree, torch.Tensor):
+                return tree.chunk(k)[i]
+            if isinstance(tree, dict):
+                return {n: rows(v, i) for n, v in tree.items()}
+            return [rows(v, i) for v in tree]
+        parts = [fn(*(rows(a, i) for a in args)) for i in range(k)]
+        return {n: sum(p[n] for p in parts) / k for n in parts[0]}
+
     def losses(self, outputs: Dict[str, torch.Tensor],
                batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The occupancy losses, the detection losses (per task
         ``task{t}_loss_heatmap`` and ``task{t}_loss_bbox``, on targets from
-        ``gt_boxes`` / ``gt_labels``) and the depth loss, float32."""
+        ``gt_boxes`` / ``gt_labels``) and the depth loss, float32.  Under
+        an active mesh each is this rank's share of the global objective
+        (the module docstring): the shares sum over the ranks to it."""
+        mesh = parallel.active_mesh()
         out = {}
         if "occ_logits" in outputs and "gt_occupancy" in batch:
             logits = outputs["occ_logits"]
             H, W = logits.shape[1], logits.shape[2]
             dist_w = torch.from_numpy(loss_lib.bev_distance_weight(H, W)).to(
                 logits.device)
-            out = occ_losses(logits, batch["gt_occupancy"],
-                             self._class_weights, dist_w, lovasz=self.lovasz)
+            out = self._sharded(
+                lambda lg, gt: occ_losses(lg, gt, self._class_weights,
+                                          dist_w, lovasz=self.lovasz),
+                logits, batch["gt_occupancy"])
         if "det_preds" in outputs and "gt_boxes" in batch:
             fp = self.model.forward_projection
-            targets = centerpoint_targets(
-                batch["gt_boxes"], batch["gt_labels"], NUSCENES_TASKS,
-                NUSCENES_CLASSES, (int(fp.nx[0]), int(fp.nx[1])),
-                self.model.pc_range, (float(fp.dx[0]), float(fp.dx[1])))
-            out.update(centerpoint_loss(outputs["det_preds"], targets))
+
+            def det(preds, boxes, labels):
+                targets = centerpoint_targets(
+                    boxes, labels, NUSCENES_TASKS, NUSCENES_CLASSES,
+                    (int(fp.nx[0]), int(fp.nx[1])), self.model.pc_range,
+                    (float(fp.dx[0]), float(fp.dx[1])))
+                return centerpoint_loss(preds, targets)
+            out.update(self._sharded(det, outputs["det_preds"],
+                                     batch["gt_boxes"], batch["gt_labels"]))
+        if mesh is not None:
+            out = {k: v / mesh.world.size for k, v in out.items()}
         if self.use_depth_supervision and "gt_depth" in batch:
             gc = getattr(self.model, "grid_config", DEFAULT_GRID_CONFIG)
             out["loss_depth"] = depth_loss(
                 batch["gt_depth"], outputs["depth"], self.model.downsample,
-                gc["depth"], self.depth_loss_weight)
+                gc["depth"], self.depth_loss_weight,
+                count_sum=None if mesh is None else (
+                    lambda c: parallel.all_reduce_(c, mesh.world)))
         return out
 
     def train_step(self, state: TrainState, temporal_state: TemporalState,
@@ -253,8 +300,24 @@ class Trainer:
         losses = self.losses(outputs, batch)
         total = sum(losses.values())
         total.backward()
-        grads = self._flat([torch.zeros_like(p) if p.grad is None else p.grad
-                            for _, p in self.params])
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for _, p in self.params]
+        mismatch = outputs["seq_mismatch"].sum()
+        mesh = parallel.active_mesh()
+        if mesh is None:
+            grads = self._flat(grads)
+        else:
+            # one sum over the world: the gradient, then the loss shares
+            # and the stream mismatches (counted once per space copy)
+            names = list(losses)
+            n = sum(p.numel() for _, p in self.params)
+            flat = parallel.all_reduce_(self._flat(grads + [
+                torch.stack([losses[k].detach().float() for k in names]),
+                mismatch.float().reshape(1)]), mesh.world)
+            grads = flat[:n]
+            losses = dict(zip(names, flat[n:n + len(names)]))
+            total = sum(losses.values())
+            mismatch = flat[-1] / mesh.space.size
         new_bs = self._flat([b for _, b in self.buffers])
         if self._frozen_stats is not None:
             new_bs = torch.where(self._frozen_stats > 0, new_bs,
@@ -273,7 +336,7 @@ class Trainer:
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss_total"] = total.detach()
         metrics["grad_norm"] = torch.sqrt(torch.sum(grads * grads))
-        metrics["seq_mismatch"] = outputs["seq_mismatch"].sum()
+        metrics["seq_mismatch"] = mismatch
         model.zero_grad(set_to_none=True)
         return new_state, new_tstate, metrics
 

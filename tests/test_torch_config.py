@@ -187,3 +187,23 @@ def test_new_modules_import_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=env, timeout=120)
+
+
+def test_parallel_imports_neither_jax_nor_the_jax_package():
+    """``fbbev_tpu_torch/parallel/`` names neither ``jax`` nor the JAX
+    package in an import, and imports with ``jax`` unimportable."""
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|fbbev_tpu)(\.|\s|$)", re.M)
+    pdir = os.path.join(ROOT, "fbbev_tpu_torch", "parallel")
+    files = sorted(f for f in os.listdir(pdir) if f.endswith(".py"))
+    assert files == ["__init__.py", "mesh.py"]
+    for f in files:
+        with open(os.path.join(pdir, f)) as fh:
+            assert not pat.search(fh.read()), f
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "import fbbev_tpu_torch.parallel\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'fbbev_tpu') and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=dict(os.environ, PYTHONPATH=ROOT), timeout=120)

@@ -467,7 +467,9 @@ def test_resume_eval_and_sinks(monkeypatch):
 
 def test_freeze_and_mesh_configs(monkeypatch):
     """``freeze`` keeps a module's parameters and statistics; a mesh
-    (``devices``, ``space``) raises, naming M14."""
+    (``devices``, ``space``) of a supported layout no longer raises (its
+    runs are ``test_torch_parallel``'s), a ``space`` that does not divide
+    the cameras still does, before any process group is made."""
     starts = []
     real = PL.Trainer.train_step
 
@@ -487,12 +489,18 @@ def test_freeze_and_mesh_configs(monkeypatch):
                            if n.startswith("img_backbone."))
             assert any(m for n, m in moved.items()
                        if n.startswith("depth_net."))
-        for opts in ({"devices": "2"}, {"space": "2"}):
-            with pytest.raises(NotImplementedError, match="M14"):
+        assert PL.mesh_layout(port_cfg()) is None
+        for opts, layout in (({"devices": "2"}, (2, 1)),
+                             ({"space": "2"}, (1, 2)),
+                             ({"devices": "4", "space": "2"}, (2, 2))):
+            assert PL.mesh_layout(port_cfg(**opts), world=2) == layout
+        for opts in ({"space": "3", "devices": "3"}, {"space": "4"}):
+            with pytest.raises(ValueError, match="space"):
                 PL.train(port_cfg(**opts), max_iters=1, work_dir=d,
                          device="cpu")
-            with pytest.raises(NotImplementedError, match="M14"):
+            with pytest.raises(ValueError, match="space"):
                 PL.evaluate(port_cfg(**opts), work_dir=d, device="cpu")
+        assert not torch.distributed.is_initialized()
 
 
 def test_tta_covers_eight_variants(monkeypatch):
@@ -528,7 +536,9 @@ def test_tta_covers_eight_variants(monkeypatch):
 
 def test_tools_train_and_test(capsys):
     """``tools.train`` then ``tools.test`` on the CPU: the checkpoint,
-    the printed and returned results, the CSV row; ``--devices`` raises."""
+    the printed and returned results, the CSV row; ``--devices 2`` in one
+    process without a process group raises, naming ``torchrun`` (its
+    two-rank runs are ``test_torch_parallel``'s)."""
     from fbbev_tpu_torch.tools import test as test_tool
     from fbbev_tpu_torch.tools import train as train_tool
     config = os.path.join(ROOT, "fbbev_tpu_torch", "configs", TINY)
@@ -546,6 +556,6 @@ def test_tools_train_and_test(capsys):
         assert f"Overall: {res['Overall']}" in capsys.readouterr().out
         with open(out_csv) as f:
             assert f.readline().strip().split(",") == list(res)
-        with pytest.raises(NotImplementedError, match="M14"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             train_tool.main([config, "--work-dir", d, "--devices", "2",
                              "--device", "cpu"] + opts)

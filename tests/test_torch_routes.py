@@ -433,8 +433,9 @@ def test_k8_occ_head_label_equivalence(monkeypatch):
     _count(monkeypatch, K8, "occ_tail", calls, "port")
     monkeypatch.setenv("FBBEV_OCC_TAIL", "1")
     monkeypatch.setenv("FBBEV_FORCE_OCC_TAIL", "interpret")
-    want = np.asarray(jh.apply(v, [jnp.asarray(f) for f in feats],
-                               return_labels=True))
+    # jitted: the interpreted kernel runs in one compiled program
+    want = np.asarray(jax.jit(lambda v, f: jh.apply(
+        v, f, return_labels=True))(v, [jnp.asarray(f) for f in feats]))
     with torch.no_grad():
         got = th([_ncdhw(f) for f in feats]).numpy()
         th.occ_tail = False
@@ -481,7 +482,7 @@ def test_k9_occ_head_matches_jax(monkeypatch):
     monkeypatch.setenv("FBBEV_OCCFUSE", "1")
     monkeypatch.setenv("FBBEV_FORCE_OCCFUSE", "interpret")
     monkeypatch.setenv("FBBEV_OCC_COARSE_PRED", "0")
-    want = np.asarray(jh.apply(v, [jnp.asarray(f) for f in feats]))
+    want = np.asarray(jax.jit(jh.apply)(v, [jnp.asarray(f) for f in feats]))
     with torch.no_grad():
         got = th([_ncdhw(f) for f in feats], return_labels=False).numpy()
     assert calls == {"jax": 1, "port": 1}
