@@ -115,19 +115,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
     --bn-warmup 3``.  Adds the entries ``conv_s8`` and ``conv_s8_bev``
     and ``int8_launches`` to K1-K4's.
 15. Multi-GPU training (``run_multi_gpu``, last; ``--multi-gpu`` alone):
-    the flagship train step at full width in float32 with K7 and
-    checkpointed stages, in three runs on the one card -- ``data=2``
-    (two processes over gloo, one sample each), ``space=2`` (two over
-    gloo, 3 cameras each) and a one-rank NCCL group -- each 2 steps, the
-    first of every run overlapping, the second timed alone; every rank
-    of a run holds the same state, and rank 0's first step is held
-    against the one-process step on the global batch (per-shard losses)
-    within ``MGPU_TOL`` (gradient relative L2, BatchNorm statistics,
+    first K7 (f32 and bf16, forward and dgrad) at every z-slab shape of the
+    BEV row split and K6 at its convs' split shapes against their plain
+    versions; then the flagship train step at full width in float32 with K7
+    and checkpointed stages, in four runs on the one card -- ``data=2`` (two
+    processes over gloo, one sample each), ``space=2`` and ``space=3`` (two
+    and three over gloo, 3 and 2 cameras each, the BEV Y rows split: 13/12
+    and 9/8/8 coarse rows) and a one-rank NCCL group -- each 2 steps, in two
+    waves (``MGPU_WAVES``) whose first steps overlap, the second steps timed
+    alone; every rank of a run holds the same state, and rank 0's first step
+    is held against the one-process step on the global batch (per-shard
+    losses) within ``MGPU_TOL`` (gradient relative L2, BatchNorm statistics,
     loss, the share of first updates equal; the one-process step is read
     against itself too, the noise floor); K7 82 + 69 launches a step on
-    every rank.  Prints one ``multi_gpu`` line (maxima, ms per step,
-    peak memory, the phase's seconds) and adds ``mgpu_launches`` to K7's
-    entries.
+    every rank. Prints each rank's peak memory beside that of the earlier
+    layout with the BEV stages replicated over 'space', one ``multi_gpu``
+    line (maxima, ms per step, peak memory, the phase's seconds) and adds
+    ``mgpu_launches`` to K7's entries. ``--multi-gpu --mgpu-faults`` then
+    plants each fault of ``MGPU_FAULTS`` in a copy of the package (halo
+    rows from the rank before as zeros; the BatchNorm count taken as the
+    ranks times this rank's) and requires ``check_mgpu`` to fail on
+    ``space=2`` and ``space=3``.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
 ...}`` device line.  Any failure raises and exits non-zero.
@@ -1384,10 +1392,34 @@ def run_train(dev):
 
 
 # the multi-GPU runs of run_multi_gpu: (data, space, backend); one H100,
-# so the two-rank groups run over gloo (NCCL refuses two ranks on one
-# device) and a one-rank group takes the NCCL path
+# so the groups of several ranks run over gloo (NCCL refuses two ranks on
+# one device) and a one-rank group takes the NCCL path.  With space > 1
+# the BEV Y rows are split over the ranks (13/12 coarse rows at space=2,
+# 9/8/8 at space=3, where the middle rank has two neighbours)
 MGPU_RUNS = {"data2": (2, 1, "gloo"), "space2": (1, 2, "gloo"),
-             "nccl1": (1, 1, "nccl")}
+             "space3": (1, 3, "gloo"), "nccl1": (1, 1, "nccl")}
+# the runs whose first steps share the card at once: two waves, so that
+# the eight processes' memory (up to 11.14 GiB a rank) never sits on the
+# 80 GB card together
+MGPU_WAVES = (("data2", "space3"), ("space2", "nccl1"))
+# the peak device memory a rank took in the earlier layout, where the
+# 'space' ranks ran the BEV stages replicated (PERF.md, H100 80GB HBM3,
+# 700 W)
+MGPU_REPLICATED_PEAK_GIB = (10.53, 11.13)
+# planted faults (``--mgpu-faults``), each in a copy of the package: the
+# halo rows from the rank before as zeros, the synchronised BatchNorm's
+# count taken as axis.size times this rank's; (file, text, replacement,
+# the runs it reaches)
+MGPU_FAULTS = {
+    "halo0": ("fbbev_tpu_torch/parallel/mesh.py",
+              "            before = got[s - 1].narrow(dim, hi, lo)\n",
+              "            before = torch.zeros_like(got[s - 1].narrow("
+              "dim, hi, lo))\n", ("space2", "space3")),
+    "bncount": ("fbbev_tpu_torch/parallel/mesh.py",
+                "        n = sums[-1]  # the values of every rank\n",
+                "        n = x.numel() // x.shape[1] * axis.size\n",
+                ("space2", "space3")),
+}
 MGPU_STEPS = 2  # the first is compared, the second timed
 # The runs are float32 (K7 on its f32 kernel): in bf16 the random-weight
 # flagship's gradient is rounding-dominated -- two reduction orders of
@@ -1401,9 +1433,11 @@ MGPU_STEPS = 2  # the first is compared, the second timed
 # all-reduce 0.69-1.36, the flat-gradient sum dropped 0.76), the share
 # of parameters whose first update (Adam's lr * sign(g)) agrees to 1e-6
 # (0.981 against 0.65-0.78 under those faults), and the BatchNorm
-# running statistics' and the loss's relative error.
+# running statistics' and the loss's relative error; with the rows
+# split, the occ head's logits on K9 against the whole grid's, 1e-4 of
+# the largest (f32 sums in two orders, K7's f32 tolerance).
 MGPU_TOL = dict(grad_rel_l2=5e-2, stats_rel_l2=1e-4, params_within=0.95,
-                loss_rel=1e-4)
+                loss_rel=1e-4, k9_rel=1e-4)
 
 
 def mgpu_batch(dev, model, cam, B):
@@ -1489,6 +1523,8 @@ def mgpu_rank(layout, rank, d, dev):
                digest={k: hashlib.sha256(getattr(s1, k).cpu().numpy()
                                          .tobytes()).hexdigest()
                        for k in ("params", "batch_stats", "ema_params")})
+    if space > 1:
+        out["k9_split"] = mgpu_k9(model, mesh, dev)
     dist.barrier()
     dist.destroy_process_group()
     if rank == 0:
@@ -1522,6 +1558,41 @@ def mgpu_rank(layout, rank, d, dev):
     return out
 
 
+def mgpu_k9(model, mesh, dev):
+    """The occ head in eval on K9's route (``occ_fuse``, ``coarse_pred``
+    off: the four 128-channel levels blended) on this rank's rows of
+    fixed flagship FPN3D levels under the row split, where K9 blends the
+    gathered levels: its logits gathered against the same head on the
+    whole levels with no mesh.  Returns {K9's launches under the split,
+    the largest error over the largest magnitude}."""
+    import torch
+    from fbbev_tpu_torch import parallel
+    from fbbev_tpu_torch.ops import pallas_occ_fuse
+    head = model.occupancy_head
+    nx, ny, nz = model.forward_projection.grid_size
+    g = torch.Generator().manual_seed(13)
+    levels = [torch.randn(1, head.occ_convs[i][0].in_channels, ny >> i,
+                          nx >> i, nz >> i, generator=g).to(dev)
+              for i in range(3)]
+    was = head.training, head.coarse_pred, head.occ_fuse
+    head.eval()
+    head.coarse_pred, head.occ_fuse = False, True
+    try:
+        with torch.no_grad():
+            want = head(levels, return_labels=False)
+            with parallel.use_mesh(mesh):
+                split = model.bev_split()
+                n0 = pallas_occ_fuse.launches
+                got = split.gather(head([split.take(f, 2) for f in levels],
+                                        return_labels=False, split=split), 1)
+                n = pallas_occ_fuse.launches - n0
+    finally:
+        head.train(was[0])
+        head.coarse_pred, head.occ_fuse = was[1:]
+    return dict(launches=n, rel_err=float((got - want).abs().max()
+                                          / want.abs().max()))
+
+
 def wait_file(path, timeout=300.0):
     t = time.perf_counter()
     while not os.path.exists(path):
@@ -1530,20 +1601,22 @@ def wait_file(path, timeout=300.0):
         time.sleep(0.02)
 
 
-def mgpu_children(d, argv, timeout=300.0):
-    """Every rank of every MGPU_RUNS run as a process (``argv(layout,
-    rank)``), all at once: their first steps overlap; once every rank is
-    ready, each run gets its turn (``<layout>.go``) for its timed step
-    and its rank 0's one-process step, and exits.  Kills them all at
-    ``timeout`` s or at the first failure; returns {layout: [rank 0's
-    dict, ...]} read from their JSON files."""
+def mgpu_children(d, argv, timeout=300.0, layouts=tuple(MGPU_RUNS),
+                  cwd=ROOT):
+    """Every rank of each run of ``layouts`` as a process (``argv(layout,
+    rank)``, in ``cwd``), all at once: their first steps overlap; once
+    every rank is ready, each run gets its turn (``<layout>.go``) for its
+    timed step and its rank 0's one-process step, and exits.  Kills them
+    all at ``timeout`` s or at the first failure; returns {layout: [rank
+    0's dict, ...]} read from their JSON files."""
     procs = {}
-    for layout, (data, space, _) in MGPU_RUNS.items():
+    for layout in layouts:
+        data, space, _ = MGPU_RUNS[layout]
         for r in range(data * space):
             log_f = open(os.path.join(d, f"{layout}{r}.log"), "w")
             procs[layout, r] = (subprocess.Popen(
                 argv(layout, r), stdout=log_f, stderr=subprocess.STDOUT,
-                cwd=ROOT), log_f)
+                cwd=cwd), log_f)
     deadline = time.perf_counter() + timeout
 
     def check():
@@ -1557,7 +1630,7 @@ def mgpu_children(d, argv, timeout=300.0):
                       for lay, r in procs):
             check()
             time.sleep(0.05)
-        for layout in MGPU_RUNS:
+        for layout in layouts:
             open(os.path.join(d, f"{layout}.go"), "w").close()
             while any(p.poll() is None for (lay, _), (p, _) in procs.items()
                       if lay == layout):
@@ -1604,30 +1677,146 @@ def check_mgpu(runs, launches=None):
                 raise AssertionError(f"{layout} rank {r['rank']}: K7 "
                                      f"launches {r['launches']}, expected "
                                      f"{launches or 'some'}")
+            k9 = r.get("k9_split")
+            if MGPU_RUNS[layout][1] > 1 and not (
+                    k9 and k9["launches"] == 1
+                    and k9["rel_err"] <= MGPU_TOL["k9_rel"]):
+                raise AssertionError(f"{layout} rank {r['rank']}: the "
+                                     f"occ head on K9 under the split: "
+                                     f"{k9}, expected one launch and an "
+                                     f"error <= {MGPU_TOL['k9_rel']}")
+
+
+def split_shapes(shapes, rows_at):
+    """The shapes of ``shapes`` under the BEV row split of every
+    MGPU_RUNS run with space > 1: each rank's rows of the level (its Y at
+    index ``rows_at``, a level of 100, 50 or 25 rows) and a halo row each
+    side; the image trunk's shapes are left out."""
+    from fbbev_tpu_torch import parallel
+    out = set()
+    for shape in shapes:
+        H = shape[rows_at]
+        if H not in (100, 50, 25):
+            continue  # the image trunk's
+        for data, space, _ in MGPU_RUNS.values():
+            if space > 1:
+                for a, b in parallel.split_rows(H, 25, space):
+                    out.add(shape[:rows_at] + (b - a + 2,)
+                            + shape[rows_at + 1:])
+    return sorted(out)
+
+
+def check_split_rows(dev):
+    """K7 forward and input gradient at every z-slab shape of the BEV row
+    split (f32, the multi-GPU runs' kernel, and bf16) and K6 (bf16, its
+    eval route's) at every split shape of its 16 convs, with the zero row
+    ``Conv3dK6`` appends where K6's gate wants it (``layers.k6_rows``),
+    against their plain
+    versions with ``check_k7``'s and ``check_k6``'s tolerances, each K7
+    shape's line with its bf16 tile plans.  Returns the largest errors
+    {(kernel, dtype): error relative to max(1, |value|) in bf16,
+    absolute in f32}."""
+    import torch
+    from fbbev_tpu_torch.models import layers
+    from fbbev_tpu_torch.ops import pallas_conv as K7
+    from fbbev_tpu_torch.ops import pallas_conv3d as K6
+    g = torch.Generator().manual_seed(12)
+    sms = K7._sms(dev)
+    worst = {}
+    dtypes = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+
+    def held(name, dt, tol, pairs, what):
+        errs = []
+        for got, want in pairs:
+            d = (got.float() - want.float()).abs()
+            errs.append((d / want.float().abs().clamp(min=1.0)).max().item()
+                        if dt == torch.bfloat16 else d.max().item())
+        key = f"{name}_{str(dt)[6:]}"
+        worst[key] = max(worst.get(key, 0.0), *errs)
+        log(f"{name} split rows {str(dt)[6:]} {what}: errors "
+            + " / ".join(f"{e:.3e}" for e in errs) + f" (tol {tol:.0e})")
+        if not max(errs) <= tol:
+            raise AssertionError(f"{name} at split rows {what} {dt}: "
+                                 f"{errs} > {tol}")
+
+    cl = torch.channels_last
+    for N, H, W, ci, co in split_shapes([s for s, _ in K7_SHAPES], 1):
+        for dt, tol in dtypes:
+            x = torch.randn(N, ci, H, W, generator=g).to(dev, dt).contiguous(
+                memory_format=cl)
+            w = (torch.randn(co, ci, 3, 3, generator=g) * 0.5
+                 / (9 * ci) ** 0.5).to(dev, dt)
+            gy = torch.randn(N, co, H, W, generator=g).to(dev, dt).contiguous(
+                memory_format=cl)
+            with torch.no_grad():
+                pairs = ((K7.conv3x3_s1(x, w), K7.conv3x3_s1_plain(x, w)),
+                         (K7._dgrad(gy, w), K7.conv3x3_s1_plain(
+                             gy, w.flip(2, 3).transpose(0, 1))))
+            held("K7", dt, tol, pairs, f"N={N} {H}x{W} {ci}->{co} fwd / "
+                 "dgrad" + (f", plans {K7.plan_bf16(N, H, W, ci, co, sms)}"
+                            f" / {K7.plan_bf16(N, H, W, co, ci, sms)}"
+                            if dt == torch.bfloat16 else ""))
+    cl = torch.channels_last_3d
+    for n, Y, X, Z, ci, co in split_shapes(K6_SHAPES, 1):
+        Y += layers.k6_rows((1, Y, X, Z, ci), co)  # as Conv3dK6 pads
+        if not K6.supports((1, Y, X, Z, ci), co):
+            log(f"K6 split rows {Y}x{X}x{Z} {ci}->{co}: outside K6's "
+                "tile plans (the conv's other route)")
+            continue
+        dt, tol = dtypes[1]  # the eval route's bf16
+        x = torch.randn(1, ci, Y, X, Z, generator=g).to(dev, dt).contiguous(
+            memory_format=cl)
+        w = (torch.randn(co, ci, 3, 3, 3, generator=g)
+             / (27 * ci) ** 0.5).to(dev, dt)
+        with torch.no_grad():
+            pairs = ((K6.conv3d_3x3x3(x, w), K6.conv3d_3x3x3_plain(x, w)),)
+        held("K6", dt, tol, pairs, f"{Y}x{X}x{Z} {ci}->{co}")
+    return worst
+
+
+def mgpu_runs(argv, layouts=tuple(MGPU_RUNS), cwd=ROOT):
+    """``mgpu_children`` over ``layouts`` wave by wave (MGPU_WAVES), in
+    a temporary directory: {layout: [rank 0's dict, ...]}."""
+    import tempfile
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for wave in MGPU_WAVES:
+            wave = [lay for lay in wave if lay in layouts]
+            if wave:
+                runs.update(mgpu_children(d, lambda layout, r: argv(
+                    layout, r, d), layouts=wave, cwd=cwd))
+    return runs
 
 
 def run_multi_gpu(dev):
     """Multi-GPU training (``fbbev_tpu_torch.parallel``) on the one card:
     ``data=2`` (two processes over gloo, one sample each), ``space=2``
-    (two processes over gloo, 3 cameras each) and a one-rank NCCL group,
-    each MGPU_STEPS float32 flagship train steps with K7 in processes of
-    their own (``mgpu_children``: the first steps overlap, the timed ones
-    take turns; all killed after 300 s), rank 0's first step held against
-    the one-process step on the global batch.  Prints one ``multi_gpu``
-    line; returns {layout: (K7 forward, dgrad launches) of rank 0}."""
-    import tempfile
+    and ``space=3`` (two and three processes over gloo, 3 and 2 cameras
+    each and the BEV rows split) and a one-rank NCCL group, each
+    MGPU_STEPS float32 flagship train steps with K7 in processes of
+    their own (``mgpu_children``, in the waves of MGPU_WAVES: the first
+    steps of a wave overlap, the timed ones take turns; all killed after
+    300 s), rank 0's first step held against the one-process step on the
+    global batch; K7 and K6 at the split shapes first.  Prints one
+    ``multi_gpu`` line; returns {layout: (K7 forward, dgrad launches) of
+    rank 0}."""
     import torch
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    split_errs = check_split_rows(dev)
     per_pass = sum(c for _, c in K7_SHAPES)
     want = (MGPU_STEPS * (per_pass + K7_RESNET_LAUNCHES),
             MGPU_STEPS * per_pass)
-    with tempfile.TemporaryDirectory() as d:
-        runs = mgpu_children(d, lambda layout, r: [
-            sys.executable, os.path.abspath(__file__), "--mgpu-rank",
-            layout, str(r), d])
+    torch.cuda.empty_cache()
+    runs = mgpu_runs(lambda layout, r, d: [
+        sys.executable, os.path.abspath(__file__), "--mgpu-rank", layout,
+        str(r), d])
     for layout, rk in runs.items():
         log(f"multi-GPU {layout}: {rk[0]}")
+        log(f"multi-GPU {layout}: peak GiB a rank "
+            f"{[round(r['peak_gib'], 2) for r in rk]} (the BEV stages "
+            f"replicated over 'space': {MGPU_REPLICATED_PEAK_GIB[0]}-"
+            f"{MGPU_REPLICATED_PEAK_GIB[1]})")
     check_mgpu(runs, want)
     line = {layout: dict(
         backend=rk[0]["backend"], ranks=len(rk),
@@ -1638,8 +1827,60 @@ def run_multi_gpu(dev):
         k7_launches=rk[0]["launches"], **rk[0]["vs_one_process"])
         for layout, rk in runs.items()}
     log(json.dumps({"multi_gpu": line, "tolerance": MGPU_TOL,
+                    "split_rows_err": split_errs,
                     "phase_s": time.perf_counter() - t0}))
     return {layout: rk[0]["launches"] for layout, rk in runs.items()}
+
+
+def run_mgpu_faults(dev):
+    """``--mgpu-faults``: each of MGPU_FAULTS planted in a copy of the
+    package (and of this script, its kernel builds shared), its runs
+    through ``check_mgpu``, which must fail; prints each run's figures
+    against the one-process step and the failure.  Raises if a fault
+    passes."""
+    import shutil
+    import tempfile
+    per_pass = sum(c for _, c in K7_SHAPES)
+    want = (MGPU_STEPS * (per_pass + K7_RESNET_LAUNCHES),
+            MGPU_STEPS * per_pass)
+    for name, (path, old, new, layouts) in MGPU_FAULTS.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as copy:
+            shutil.copytree(os.path.join(ROOT, "fbbev_tpu_torch"),
+                            os.path.join(copy, "fbbev_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(os.path.abspath(__file__), copy)
+            os.symlink(os.path.join(ROOT, "build"),
+                       os.path.join(copy, "build"))
+            with open(os.path.join(copy, path)) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise AssertionError(f"fault {name}: {old!r} occurs "
+                                     f"{text.count(old)} times in {path}")
+            with open(os.path.join(copy, path), "w") as f:
+                f.write(text.replace(old, new))
+            try:
+                runs = mgpu_runs(lambda layout, r, d: [
+                    sys.executable, os.path.join(copy, "chip_smoke.py"),
+                    "--mgpu-rank", layout, str(r), d], layouts, cwd=copy)
+            except AssertionError as e:
+                # a rank that fails outright has caught the fault too
+                log(f"fault {name}: the runs fail: {str(e)[:300]}")
+                continue
+        for layout, rk in runs.items():
+            log(f"fault {name} {layout}: {json.dumps(rk[0]['vs_one_process'])}"
+                f"; digests equal on every rank: "
+                f"{all(r['digest'] == rk[0]['digest'] for r in rk)}")
+        for layout, rk in runs.items():
+            try:
+                check_mgpu({layout: rk}, want)
+            except AssertionError as e:
+                log(f"fault {name} {layout}: check_mgpu fails as it must: "
+                    f"{str(e)[:300]}")
+            else:
+                raise AssertionError(f"fault {name} passes check_mgpu in "
+                                     f"{layout}")
+        log(f"fault {name}: {time.perf_counter() - t0:.1f} s")
 
 
 # the port's route arguments of the kernel-routed configurations, and the
@@ -4110,7 +4351,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--mgpu-rank"]:
-        # one rank of run_multi_gpu's two-rank groups (a child process)
+        # one rank of run_multi_gpu's groups (a child process)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         mgpu_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4],
@@ -4205,8 +4446,11 @@ def main():
         log(f"chip_smoke --int8: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--multi-gpu" in sys.argv[1:]:
-        # the multi-GPU training phase alone (run_multi_gpu)
+        # the multi-GPU training phase alone (run_multi_gpu), then with
+        # --mgpu-faults the planted faults
         run_multi_gpu(dev)
+        if "--mgpu-faults" in sys.argv[1:]:
+            run_mgpu_faults(dev)
         log(f"chip_smoke --multi-gpu: {time.perf_counter() - T0:.1f} s")
         return 0
     if "--config" in sys.argv[1:]:

@@ -27,7 +27,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from fbbev_tpu_torch import geometry
+from fbbev_tpu_torch import geometry, parallel
 from fbbev_tpu_torch.models import convnext, dla, resnet, swin, vovnet
 from fbbev_tpu_torch.models.bevformer import BackwardProjection
 from fbbev_tpu_torch.models.centerpoint_head import CenterHead, SeparateHead
@@ -48,6 +48,9 @@ DEFAULT_GRID_CONFIG = {
     "z": (-1.0, 5.4, 0.8),
     "depth": (2.0, 42.0, 0.5),
 }
+
+# the BEV Y rows of the 3D encoder's coarsest level: its strides 1, 2, 2
+BEV_ROW_STRIDE = 4
 
 DEFAULT_BEVFORMER_GRID = {
     "x": (-40.0, 40.0, 0.8),
@@ -249,6 +252,15 @@ class FBOCC(nn.Module):
             for m in stage.modules():
                 if isinstance(m, BatchNorm):
                     m.camera_split = True
+        # the BEV stages: under a mesh with a 'space' axis they compute
+        # this rank's Y rows (``layers`` module docstring)
+        for stage in (self.history_keyframe_time_conv,
+                      self.history_keyframe_cat_conv,
+                      self.img_bev_encoder_backbone,
+                      self.img_bev_encoder_neck, self.occupancy_head):
+            for m in stage.modules() if stage is not None else ():
+                if hasattr(m, "row_split"):
+                    m.row_split = True
         init_weights(self, generator)
         self.to(device=device)
         self.cast(dtype)
@@ -283,6 +295,17 @@ class FBOCC(nn.Module):
         x = self.img_neck([f.to(self.dtype) for f in self.img_backbone(x)])
         return x.permute(0, 2, 3, 1).reshape(B, N, *x.shape[2:], x.shape[1])
 
+    def bev_split(self) -> Optional[parallel.RowSplit]:
+        """The active mesh's split of the BEV Y rows over 'space' (None:
+        none), nested in the 3D encoder's coarsest level."""
+        axis = parallel.row_axis()
+        if axis is None:
+            return None
+        ny = self.forward_projection.grid_size[1]
+        if ny % BEV_ROW_STRIDE:
+            raise ValueError(f"a BEV of {ny} rows has no nested row split")
+        return parallel.RowSplit(axis, ny // BEV_ROW_STRIDE)
+
     # ------------------------------------------------------------------
     def fuse_history(self, curr_bev: torch.Tensor, state: TemporalState,
                      meta: dict, bda: torch.Tensor, do_history: bool = True):
@@ -292,8 +315,13 @@ class FBOCC(nn.Module):
         curr_bev: (B, Y, X, Z, C); meta: ``start_of_sequence`` (B,) bool,
         ``sequence_group_idx`` (B,) int, ``curr_to_prev_ego_rt`` (B, 4, 4);
         bda (B, 3, 3); ``do_history`` as :meth:`fuse_history_aged`.
-        Returns (fused (B, Y, X, Z, F), new_state, seq_mismatch (B,))."""
+        Returns (fused (B, Y, X, Z, F), new_state, seq_mismatch (B,)).
+        Under a row split (:meth:`bev_split`) curr_bev and fused are this
+        rank's rows: K1 runs on the gathered grid."""
         dt = self.dtype
+        split = self.bev_split()
+        if split is not None:
+            curr_bev = split.gather(curr_bev, 1)
         curr_bev = curr_bev.to(dt)
         B, C = curr_bev.shape[0], curr_bev.shape[-1]
         T = self.history_cat_num
@@ -346,11 +374,12 @@ class FBOCC(nn.Module):
             state.history_bev.to(dt), curr_bev, mat, start, hsel,
             epilogue=epi)
         fused = self.history_keyframe_cat_conv(part, y1_c, curr_rows)
+        if split is not None:
+            fused = split.take(fused, 1)
         new_state = TemporalState(history_bev=new_hist, sweep_time=new_sweep,
                                   seq_ids=seq_ids,
                                   forward_augs=forward_augs)
         return fused, new_state, seq_mismatch
-
 
     # ------------------------------------------------------------------
     def fuse_history_aged(self, curr_bev: torch.Tensor, state: TemporalState,
@@ -366,9 +395,15 @@ class FBOCC(nn.Module):
         (``fbocc.py:314-321``).  Returns (fused (B, Y, X, Z, F),
         new_state, seq_mismatch (B,) bool: a non-start sample whose
         stream id differs from the buffered one).  The history carries no
-        gradient."""
+        gradient.  Under a row split (:meth:`bev_split`) curr_bev and fused
+        are this rank's rows: the history is warped whole and stays whole
+        on every rank (built from the gathered current BEV), the time and
+        cat convs run on the rank's rows."""
         dt = self.dtype
         curr_bev = curr_bev.to(dt)
+        split = self.bev_split()
+        curr_all = (curr_bev.detach() if split is None
+                    else split.gather(curr_bev.detach(), 1))
         B, ny, nx, nz, C = curr_bev.shape
         T = self.history_cat_num
         dev = curr_bev.device
@@ -386,7 +421,7 @@ class FBOCC(nn.Module):
         hist_augs = torch.where(start[:, None, None], forward_augs,
                                 state.forward_augs)
         with torch.no_grad():
-            curr_zyx = curr_bev.detach().permute(0, 3, 1, 2, 4)
+            curr_zyx = curr_all.permute(0, 3, 1, 2, 4)
             hist_zyx = torch.where(start[:, None, None, None, None],
                                    curr_zyx.repeat(1, 1, 1, 1, T),
                                    state.history_bev.to(dt))
@@ -402,10 +437,12 @@ class FBOCC(nn.Module):
             else:
                 warp = pallas_warp.warp_affine_3d
             sampled = warp(hist_zyx, mat).to(dt)           # (B, Y, X, Z, TC)
+            new_hist = torch.cat([curr_all, sampled[..., :(T - 1) * C]],
+                                 -1).permute(0, 3, 1, 2, 4).contiguous()
+        if split is not None:
+            sampled = split.take(sampled, 1)
         feats_cat = torch.cat([curr_bev, sampled], -1)     # (1 + T) C
         sweep_full = torch.cat([torch.zeros(B, 1, device=dev), sweep_r], 1)
-        new_hist = feats_cat[..., :T * C].detach().permute(
-            0, 3, 1, 2, 4).contiguous()
         # the 1x1x1 time conv mixes no positions: frames fold into Z
         frames = feats_cat.reshape(B, ny, nx, nz * (T + 1), C)
         t_emb = (sweep_full * 0.5)[:, None, :].expand(B, nz, T + 1).reshape(
@@ -435,18 +472,31 @@ class FBOCC(nn.Module):
         the backward projection), ``seq_mismatch`` and ``occ_logits`` (B,
         Y, X, Z, classes) f32 (with the occupancy head) and ``det_preds``
         (with the detection head: per task a dict of (B, Y, X, ch) f32
-        maps, as :class:`CenterHead` returns)."""
+        maps, as :class:`CenterHead` returns).
+
+        Under an active mesh with a 'space' axis (:meth:`bev_split`) the
+        BEV stages compute this rank's Y rows (``parallel`` module
+        docstring); ``occ_logits`` are gathered whole on every rank and
+        the detection head runs on the gathered finest level."""
         self.train(train)
         cam = geometry.CamParams(*(batch[k] for k in geometry.CamParams._fields))
         feats = self.image_encoder(batch["imgs"])
         context, depth = self.depth_net(feats, get_mlp_input(cam))
         bev = self.forward_projection(cam, context, depth)
         outputs = {"depth": depth, "context": context}
+        # under a row split the pool and the backward projection (whose
+        # self-attention reads the whole grid) run replicated; the rest
+        # computes this rank's rows, from the readd on
+        split = self.bev_split()
         if self.backward_projection is not None:
             refined = self.backward_projection(
                 context, bev.mean(dim=3).to(self.dtype), depth, cam=cam)
-            bev = refined.float()[:, :, :, None, :] + bev
             outputs["bev_refined"] = refined
+            if split is not None:
+                refined, bev = split.take(refined, 1), split.take(bev, 1)
+            bev = refined.float()[:, :, :, None, :] + bev
+        elif split is not None:
+            bev = split.take(bev, 1)
         fuse = (self.fuse_history_aged if train or not self.fuse_warp
                 else self.fuse_history)
         fused, new_state, seq_mismatch = fuse(bev, state, batch, cam.bda,
@@ -458,18 +508,31 @@ class FBOCC(nn.Module):
             n_out=None if self.occupancy_head is not None else 1)
         if self.occupancy_head is not None:
             outputs["occ_logits"] = self.occupancy_head(
-                vox, return_labels=False)
+                vox, return_labels=False, split=split)
+            if split is not None:
+                # the losses and the metric read the whole grid (JAX's
+                # _occ_losses_sharded: in_specs P("data"))
+                outputs["occ_logits"] = split.gather(outputs["occ_logits"], 1)
         if self.pts_bbox_head is not None:
-            # Z folded into channels as JAX's reshape of (B, Y, X, Z, C)
-            # to (B, Y, X, Z*C): channel z*C + c.  This is
-            # vox[0].permute(0, 4, 1, 2, 3).reshape(B, Z*C, Y, X), made
-            # in channels-last memory (free when vox[0] is in
-            # channels_last_3d), which K7 and cuDNN read
-            B, C, Y, X, Z = vox[0].shape
-            bev2d = vox[0].permute(0, 2, 3, 4, 1).reshape(
-                B, Y, X, Z * C).permute(0, 3, 1, 2)
-            outputs["det_preds"] = self.pts_bbox_head(bev2d)
+            outputs["det_preds"] = self.detect(vox[0], split)
         return outputs, new_state
+
+    def detect(self, vox0: torch.Tensor,
+               split: Optional[parallel.RowSplit] = None):
+        """The detection head on the finest 3D level (B, C, Y, X, Z): per
+        task a dict of (B, Y, X, ch) maps.  Under a row split
+        (:meth:`bev_split`) vox0 is this rank's rows and the head runs on
+        the level gathered whole, a copy on every rank."""
+        if split is not None:
+            vox0 = split.gather(vox0, 2)
+        # Z folded into channels as JAX's reshape of (B, Y, X, Z, C) to
+        # (B, Y, X, Z*C): channel z*C + c.  This is vox0.permute(0, 4, 1,
+        # 2, 3).reshape(B, Z*C, Y, X), made in channels-last memory (free
+        # when vox0 is in channels_last_3d), which K7 and cuDNN read
+        B, C, Y, X, Z = vox0.shape
+        bev2d = vox0.permute(0, 2, 3, 4, 1).reshape(
+            B, Y, X, Z * C).permute(0, 3, 1, 2)
+        return self.pts_bbox_head(bev2d)
 
 
 def init_weights(model: nn.Module, generator: Optional[torch.Generator]):

@@ -3,7 +3,10 @@
 trilinear top-down (align_corners=False), 3x3x3 conv-BN-ReLU outputs
 (on K7 through the z-slab decomposition with ``pallas3x3``, on K6 in eval
 with ``pallas_conv3d``).
-``(B, C, Y, X, Z)`` tensors."""
+``(B, C, Y, X, Z)`` tensors; with ``row_split`` (set by ``FBOCC``) each
+level holds this rank's Y rows under an active row split, and the
+top-down upsample and the output convs take their halos
+(``layers.resize_trilinear``, ``layers.Conv3d``)."""
 
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ from fbbev_tpu_torch.models.layers import ConvModule, resize_trilinear
 
 
 class FPN3D(nn.Module):
+    row_split = False
+
     def __init__(self, in_channels: Sequence[int] = (64, 128, 256),
                  out_channels: int = 256, pallas3x3: bool = False,
                  pallas_conv3d: bool = False):
@@ -36,6 +41,6 @@ class FPN3D(nn.Module):
         as dead code."""
         lat = [m(x) for m, x in zip(self.lateral_convs, inputs)]
         for i in range(len(lat) - 1, 0, -1):
-            lat[i - 1] = lat[i - 1] + resize_trilinear(lat[i],
-                                                       lat[i - 1].shape[2:])
+            lat[i - 1] = lat[i - 1] + resize_trilinear(
+                lat[i], lat[i - 1].shape[2:], self.row_split)
         return [m(x) for m, x in zip(self.fpn_convs[:n_out], lat)]

@@ -25,6 +25,16 @@ normalises with the biased batch variance and updates the running
 statistics with it, ``running = 0.9 * running + 0.1 * batch``, the batch
 statistics taken in float32 (the running statistics are float32 in
 training: the ``Trainer`` makes every BatchNorm float32).
+
+The BEV row split.  ``FBOCC`` marks the modules of its BEV stages
+(``row_split``: the 3D convs, BatchNorms, FPN3D and the occ head; the
+image stage, which shares :class:`BasicBlock` and :func:`conv`, stays
+unmarked).  Under an active mesh whose ``space`` axis has more than one
+rank a marked module's input holds this rank's rows of the BEV Y axis
+(``parallel.split_rows``): a 3x3x3 conv fetches one halo row from each
+neighbour (:class:`Conv3d`), an upsample along Y works on its rows with
+one clamped halo row each side (:func:`resize_trilinear`), and a
+BatchNorm takes the statistics of the world.
 """
 
 from __future__ import annotations
@@ -57,18 +67,59 @@ class Conv3x3K7(nn.Conv2d):
         return y
 
 
-class Conv3dZSlabK7(nn.Conv3d):
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` on ``(B, C, Y, X, Z)`` tensors.  With ``row_split``
+    (module docstring) and an active row split, x is this rank's Y rows
+    and so is the result: the conv fetches the rows its window reaches
+    beyond them (``padding`` before, ``k - stride - padding`` after: one
+    each side for a 3x3x3 stride-1 conv, one before for a stride-2 one;
+    zeros at the grid's own edges, the conv's padding) and runs with no
+    Y padding.  A 1x1x1 conv is row-local."""
+
+    row_split = False
+
+    def forward(self, x):
+        axis = parallel.row_axis() if self.row_split else None
+        if axis is None or self.kernel_size[0] == 1:
+            return self.conv(x)
+        return self.conv_rows(x, axis)
+
+    def conv(self, x):
+        """The conv of a whole grid (or of rows and their halo, padded)."""
+        return super().forward(x)
+
+    def halo_rows(self) -> Tuple[int, int]:
+        """The rows this conv's window reaches before and after a rank's
+        rows of the nested split."""
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        assert self.dilation[0] == 1, self.dilation
+        return p, max(k - s - p, 0)
+
+    def conv_rows(self, x, axis):
+        xe = parallel.halo(x, 2, *self.halo_rows(), axis)
+        return F.conv3d(xe, self.weight, self.bias, self.stride,
+                        (0,) + tuple(self.padding[1:]), self.dilation,
+                        self.groups)
+
+
+class Conv3dZSlabK7(Conv3d):
     """3x3x3 stride-1 padding-1 ``nn.Conv3d`` on ``(B, C, Y, X, Z)``
     tensors as the JAX package's stride-1 z-slab decomposition
     (``Conv3DZSlab``, ``layers.py:136-183``): three z-shifted 3x3 2D convs
     over the ``(B*Z, C, Y, X)`` slabs, summed in the input's type, each on
     K7 (forward and input gradient) where :func:`pallas_conv.supports`
-    holds for a slab, and ``nn.Conv3d`` elsewhere."""
+    holds for a slab, and ``nn.Conv3d`` elsewhere.  On split rows it runs
+    on the rows and their halo (one each side), padded, and crops."""
 
-    def forward(self, x):
+    def conv_rows(self, x, axis):
+        lo, hi = self.halo_rows()  # (1, 1)
+        y = self.conv(parallel.halo(x, 2, lo, hi, axis))
+        return y[:, :, lo:y.shape[2] - hi]
+
+    def conv(self, x):
         B, C, Y, X, Z = x.shape
         if not pallas_conv.supports((B * Z, C, Y, X), self.out_channels):
-            return super().forward(x)
+            return nn.Conv3d.forward(self, x)
         # (B, Z+2, Y, X, C) contiguous: each slab is a free channels-last
         # view, the memory K7 reads
         xp = F.pad(x, (1, 1)).permute(0, 4, 2, 3, 1).contiguous()
@@ -99,7 +150,7 @@ class Conv3dK6(Conv3dZSlabK7):
         super().__init__(*args, **kw)
         self.zslab = zslab
 
-    def forward(self, x):
+    def conv(self, x):
         B, C, Y, X, Z = x.shape
         if not self.training and conv3d_k6.supports((B, Y, X, Z, C),
                                                     self.out_channels):
@@ -108,15 +159,37 @@ class Conv3dK6(Conv3dZSlabK7):
                 y = y + self.bias.to(y.dtype)[:, None, None, None]
             return y
         if self.zslab:
-            return super().forward(x)
+            return super().conv(x)
         return nn.Conv3d.forward(self, x)
+
+    def conv_rows(self, x, axis):
+        # zero rows after the halo, where they bring the rows to a size
+        # K6's gate takes, reach no output row that is kept
+        xe = parallel.halo(x, 2, 1, 1, axis)
+        B, C, Y, X, Z = xe.shape
+        extra = 0 if self.training else k6_rows((B, Y, X, Z, C),
+                                                self.out_channels)
+        y = self.conv(F.pad(xe, (0, 0, 0, 0, 0, extra)) if extra else xe)
+        return y[:, :, 1:1 + x.shape[2]]
+
+
+def k6_rows(shape: Sequence[int], cout: int) -> int:
+    """The zero rows :class:`Conv3dK6` appends to a rank's rows and halo,
+    channels-last ``shape`` (B, Y, X, Z, C), so that K6's gate takes them
+    (an odd Y, 11 at space=3's 9-row coarse rank, is no multiple of a tile
+    edge; Y + 1 is even): 0 or 1, and 0 where neither is taken."""
+    B, Y, X, Z, C = shape
+    for k in (0, 1):
+        if conv3d_k6.supports((B, Y + k, X, Z, C), cout):
+            return k
+    return 0
 
 
 def conv(ndim: int, cin: int, cout: int, k: int, stride: int = 1,
          padding: int = 0, dilation: int = 1, bias: bool = False,
          pallas3x3: bool = False, pallas_conv3d: bool = False):
-    """``nn.Conv{2,3}d`` with explicit integer padding.  A 3x3(x3)
-    stride-1 padding-1 undilated conv is, with ``pallas_conv3d``, a
+    """``nn.Conv2d`` or :class:`Conv3d` with explicit integer padding.  A
+    3x3(x3) stride-1 padding-1 undilated conv is, with ``pallas_conv3d``, a
     :class:`Conv3dK6` (3D); else with ``pallas3x3`` a :class:`Conv3x3K7`
     (2D) or a :class:`Conv3dZSlabK7` (3D)."""
     assert isinstance(padding, int), padding
@@ -127,7 +200,7 @@ def conv(ndim: int, cin: int, cout: int, k: int, stride: int = 1,
         if pallas3x3:
             cls = Conv3x3K7 if ndim == 2 else Conv3dZSlabK7
             return cls(cin, cout, 3, padding=1, bias=bias)
-    cls = nn.Conv2d if ndim == 2 else nn.Conv3d
+    cls = nn.Conv2d if ndim == 2 else Conv3d
     return cls(cin, cout, k, stride=stride, padding=padding,
                dilation=dilation, bias=bias)
 
@@ -147,13 +220,15 @@ def batch_norm(m: "BatchNorm", x: torch.Tensor, dim: int = 1
     ``nn.BatchNorm``, training needs more than one value per channel.
 
     Under an active mesh the batch statistics are those of every rank
-    that holds other images (``m.camera_split``: the image stage) or
-    other samples (the BEV stages): ``parallel.sync_batch_norm``, the
-    global-batch statistics of JAX's jit over a sharded batch."""
+    that holds other images (``m.camera_split``: the image stage), other
+    BEV rows (``m.row_split``: the stages behind the row split) or other
+    samples (the rest): ``parallel.sync_batch_norm``, the global-batch
+    statistics of JAX's jit over a sharded batch."""
     move = dim % x.ndim != 1
     if move:
         x = x.movedim(dim, 1)
-    axis = (parallel.bn_axis(parallel.active_mesh(), m.camera_split)
+    axis = (parallel.bn_axis(parallel.active_mesh(),
+                             m.camera_split or m.row_split)
             if m.training else None)
     if not m.training:
         y = F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
@@ -188,6 +263,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     update_stats = True  # off while a checkpointed stage recomputes
     camera_split = False  # in the per-camera image stage (FBOCC sets it)
+    row_split = False  # behind the BEV row split (FBOCC sets it)
 
     def forward(self, x):
         return batch_norm(self, x, 1)
@@ -423,10 +499,35 @@ def upsample_int_axis(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
     return torch.stack(phases, dim=axis + 1).reshape(shape)
 
 
-def resize_trilinear(x, out_size: Sequence[int]):
+# the input rows an integer-factor linear upsample reads beyond an output
+# row range's own, each side
+UPSAMPLE_HALO = 1
+
+
+def resize_trilinear(x, out_size: Sequence[int], rows: bool = False):
     """Trilinear resize of ``(B, C, D, H, W)`` with half-pixel centres and
     edge clamp (align_corners=False), the JAX package's
-    ``resize_trilinear`` for upsampling."""
+    ``resize_trilinear`` for upsampling.  With ``rows`` and an active row
+    split, x and the result are this rank's rows of D (the BEV Y axis, an
+    integer factor finer in the result): D is upsampled by
+    :func:`upsample_int_axis` on the rows with one halo row of each
+    neighbour (the edge row repeated at the grid's own edges: the clamp)
+    and cropped, then H and W as above."""
+    axis = parallel.row_axis() if rows else None
+    if axis is None:
+        return F.interpolate(x, size=tuple(out_size), mode="trilinear",
+                             align_corners=False)
+    n = x.shape[2]
+    s = out_size[0] // n
+    if s * n != out_size[0]:
+        raise ValueError(f"split rows {n} -> {out_size[0]}: not an "
+                         "integer factor")
+    if s > 1:
+        x = upsample_int_axis(parallel.halo(
+            x, 2, UPSAMPLE_HALO, UPSAMPLE_HALO, axis, clamp=True), 2, s)
+        x = x[:, :, s * UPSAMPLE_HALO:s * (UPSAMPLE_HALO + n)]
+    if tuple(x.shape[3:]) == tuple(out_size[1:]):
+        return x
     return F.interpolate(x, size=tuple(out_size), mode="trilinear",
                          align_corners=False)
 

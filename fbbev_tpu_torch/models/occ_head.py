@@ -19,16 +19,23 @@ runs the blend on K9 when it is not the coarse-pred one, the channels are
 a multiple of 128 and the factors are integers (``occ_head.py:188-203``).
 ``pallas3x3`` routes the 3x3x3 level convs to K7 through the z-slab
 decomposition (``FBBEV_PALLAS3X3=1``); ``pallas_conv3d`` to K6 in eval
-(``FBBEV_CONV3D=pallas``).  ``(B, C, Y, X, Z)`` inputs."""
+(``FBBEV_CONV3D=pallas``).  ``(B, C, Y, X, Z)`` inputs.
+
+Under an active row split (``row_split``, set by ``FBOCC``) the levels
+and the logits are this rank's Y rows: the deblock and the 1x1x1 convs
+are row-local, ``occ_convs`` and the blend's upsamples take halos
+(``layers.Conv3d``, ``layers.resize_trilinear``), and K8 and K9, which
+read whole grids, run on the gathered levels and keep the rank's rows."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fbbev_tpu_torch import parallel
 from fbbev_tpu_torch.models import losses as L
 from fbbev_tpu_torch.models.layers import bn, conv, conv_bn_relu, \
     resize_trilinear
@@ -36,6 +43,8 @@ from fbbev_tpu_torch.ops import pallas_occ_fuse, pallas_occ_tail
 
 
 class OccHead(nn.Module):
+    row_split = False
+
     def __init__(self, in_channels: Sequence[int] = (256, 256, 256),
                  out_channel: int = 19, pallas3x3: bool = False,
                  pallas_conv3d: bool = False, coarse_pred: bool = True,
@@ -60,15 +69,28 @@ class OccHead(nn.Module):
             conv(3, mid, mid // 2, 1), bn(3, mid // 2), nn.ReLU(),
             conv(3, mid // 2, out_channel, 1))
 
-    def forward(self, voxel_feats, return_labels: bool = True):
+    def forward(self, voxel_feats, return_labels: bool = True,
+                split: Optional[parallel.RowSplit] = None):
         """Returns (B, Y, X, Z) labels, or (B, Y, X, Z, classes) f32
-        logits with ``return_labels=False``."""
+        logits with ``return_labels=False``.  Under an active row split
+        the levels and the result are this rank's Y rows and ``split`` is
+        the model's (``FBOCC.bev_split``)."""
         outs = [self.deblock(voxel_feats[0])] + [
             m(f) for m, f in zip(self.occ_convs, voxel_feats)]
         w = torch.softmax(self.voxel_soft_weights(outs[0]), dim=1)
         target = outs[0].shape[2:]
         conv1, bn1 = self.occ_pred_conv[0], self.occ_pred_conv[1]
         coarse = self.coarse_pred and not self.training
+        rows = self.row_split and parallel.row_axis() is not None
+        if rows and split is None:
+            raise ValueError("the levels are split rows: pass split=")
+
+        def whole(levels):
+            # K8 and K9 read whole grids: the levels gathered
+            return [split.gather(f, 2) for f in levels] if rows else levels
+
+        def mine(y, dim):
+            return split.take(y, dim) if rows else y
         if coarse:
             ys = [conv1(f) for f in outs]
             if (return_labels and self.occ_tail
@@ -77,16 +99,17 @@ class OccHead(nn.Module):
                     bn1.running_var.float() + bn1.eps)
                 b = bn1.bias.float() - bn1.running_mean.float() * a
                 k2 = self.occ_pred_conv[3].weight[:, :, 0, 0, 0].t()
-                return pallas_occ_tail.occ_tail(ys, w.to(ys[0].dtype), a, b,
-                                                k2)
-            fused = _blend(ys, w, target)
+                return mine(pallas_occ_tail.occ_tail(
+                    whole(ys), whole([w.to(ys[0].dtype)])[0], a, b, k2), 1)
+            fused = _blend(ys, w, target, rows)
         elif (not self.training and self.occ_fuse
               and outs[0].shape[1] % 128 == 0
               and pallas_occ_tail.int_factors(outs, target)):
-            fused = conv1(pallas_occ_fuse.fuse_multiscale(
-                outs, w.to(outs[0].dtype)))
+            # (the nested row plan keeps a split level's factors whole)
+            fused = conv1(mine(pallas_occ_fuse.fuse_multiscale(
+                whole(outs), whole([w.to(outs[0].dtype)])[0]), 2))
         else:
-            fused = conv1(_blend(outs, w, target))
+            fused = conv1(_blend(outs, w, target, rows))
         y = F.relu(bn1(fused))
         logits = self.occ_pred_conv[3](y).float()
         if return_labels:
@@ -94,13 +117,14 @@ class OccHead(nn.Module):
         return logits.permute(0, 2, 3, 4, 1)
 
 
-def _blend(levels, w, target):
+def _blend(levels, w, target, rows=False):
     """Upsample every level to ``target`` and blend with ``w``: the JAX
-    package's XLA expression (``occ_head.py:211-216``)."""
+    package's XLA expression (``occ_head.py:211-216``); ``rows``: on this
+    rank's rows of a row split."""
     fused = 0
     for i, f in enumerate(levels):
         if f.shape[2:] != target:
-            f = resize_trilinear(f, target)
+            f = resize_trilinear(f, target, rows)
         fused = fused + f * w[:, i:i + 1]
     return fused
 

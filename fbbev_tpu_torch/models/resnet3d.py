@@ -3,7 +3,10 @@
 (depth 18: two basic blocks per stage, strides 1/2/2, every stage out).
 ``pallas3x3`` routes the stride-1 3x3x3 convs to K7 through the z-slab
 decomposition; ``pallas_conv3d`` routes them to K6 in eval (10 at the
-flagship).  Takes and returns ``(B, C, Y, X, Z)`` tensors."""
+flagship).  Takes and returns ``(B, C, Y, X, Z)`` tensors: under an
+active row split (its convs marked ``row_split`` by ``FBOCC``) this
+rank's Y rows of each level, the stride-2 convs reading one halo row of
+the rank before (``layers.Conv3d``)."""
 
 from __future__ import annotations
 

@@ -14,9 +14,20 @@ over a ('data', 'space') device mesh; the port runs one process per rank
 * ``space`` -- the ranks of one data index split the cameras: each runs
   the image encoder and the depth net on ``N / space`` cameras, the LSS
   pool and the BEVFormer camera sum add over ``space``
-  (:func:`all_reduce_sum`, JAX's ``psum`` in ``lss.py::_pool``), and the
-  BEV stages run replicated on the group (JAX's
-  ``FBBEV_BEV_SPACE_SHARD=0`` layout).
+  (:func:`all_reduce_sum`, JAX's ``psum`` in ``lss.py::_pool``).  The
+  BEV stages then split the grid's Y rows over ``space``, JAX's default
+  layout (``_bev_spec``: the BEV tensors pinned to ('data', 'space')):
+  each rank keeps its rows of the pooled and refined BEV (the pool and
+  the backward projection, which needs the whole grid, run replicated),
+  and the readd, the history fusion's convs, the 3D encoder, FPN3D and
+  the occupancy head compute only its rows (:class:`RowSplit`, the
+  nested plan of :func:`split_rows`).  A 3x3x3 conv or an upsample
+  fetches the one row its window reaches beyond them from each neighbour
+  (:func:`halo`, where GSPMD inserts its halo exchanges); the history
+  state stays whole on every rank (JAX's ``state_pspecs``), and the
+  occupancy logits and the detection head's input are gathered
+  (:meth:`RowSplit.gather`).  BatchNorms behind the split reduce over
+  the world (:func:`bn_axis`).
 
 Rank r sits at ``(r // space, r % space)``, the order of JAX's
 ``np.asarray(devices).reshape(data, space)``.  Model code reads the
@@ -26,10 +37,13 @@ module computes as on one device, with no collective.
 The gradient.  Every rank's loss is its *share* of the global objective
 (the trainer scales it), so the shares sum over the world to the loss of
 the one-process step on the global batch.  Each collective's backward is
-the same sum of the gradients that reach it on every rank, so one sum of
-the flat gradient over the world gives every rank that step's gradient.
-The BEV stages of the ``space`` ranks of one data index are copies: each
-copy's loss share is ``1 / space`` of its data shard's.
+the same sum of the gradients that reach it on every rank (a halo's sends
+each halo row's gradient back to the row's owner, a gather's sums over
+``space`` and returns each rank its own rows), so one sum of the flat
+gradient over the world gives every rank that step's gradient.  What the
+``space`` ranks of one data index compute as copies (the backward
+projection, the gathered losses, the detection head) takes a ``1 /
+space`` loss share each; each row behind the split belongs to one rank.
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ import contextlib
 import dataclasses
 import datetime
 import os
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -248,24 +262,187 @@ def all_reduce_sum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The BEV row split over 'space'.
+# ---------------------------------------------------------------------------
+
+def split_rows(n: int, coarse: int, parts: int) -> List[Tuple[int, int]]:
+    """The nested row plan: (start, stop) of each of ``parts`` ranks'
+    rows of a level of ``n`` rows (a multiple of ``coarse``, the rows of
+    the coarsest level), the coarsest level split as evenly as possible
+    (the first ranks one row more) and each finer level taking its factor
+    times those rows.  So a stride-2 conv reads one row of the rank
+    before, a 3x3x3 stride-1 conv one row of each neighbour and an
+    integer-factor upsample at most one input row of each."""
+    if n % coarse or not 1 <= parts <= coarse:
+        raise ValueError(f"no nested split of {n} rows over {parts} ranks "
+                         f"at {coarse} coarse rows")
+    q, r = divmod(coarse, parts)
+    edge = [i * q + min(i, r) for i in range(parts + 1)]
+    f = n // coarse
+    return [(f * a, f * b) for a, b in zip(edge[:-1], edge[1:])]
+
+
+def row_axis() -> Optional[Axis]:
+    """The active mesh's ``space`` axis where it splits the BEV rows
+    (more than one rank), else None."""
+    mesh = _ACTIVE_MESH
+    if mesh is None or mesh.space.group is None:
+        return None
+    return mesh.space
+
+
+class _Halo(torch.autograd.Function):
+    """x's rows along ``dim`` with ``lo`` rows of the rank before and
+    ``hi`` of the rank after on ``axis``; at the grid's own edges zeros
+    (a conv's padding) or, with ``clamp``, the edge row repeated (an
+    upsample's).  One all-gather of every rank's boundary rows, padded
+    to the same size.  The backward sends each halo row's gradient back
+    to the rank that owns the row, which adds it in."""
+
+    @staticmethod
+    def forward(ctx, x, dim, lo, hi, clamp, axis):
+        n = x.shape[dim]
+        if n < max(lo, hi):
+            raise ValueError(f"{n} rows cannot lend a halo of {lo}/{hi}")
+        ctx.args = (dim, lo, hi, clamp, axis)
+        s, S = axis.index, axis.size
+        # my first hi rows (the rank before's hi halo), my last lo rows
+        got = all_gather(torch.cat([x.narrow(dim, 0, hi),
+                                    x.narrow(dim, n - lo, lo)], dim), axis)
+        if s > 0:
+            before = got[s - 1].narrow(dim, hi, lo)
+        else:
+            before = _edge(x, dim, 0, lo, clamp)
+        if s < S - 1:
+            after = got[s + 1].narrow(dim, 0, hi)
+        else:
+            after = _edge(x, dim, n - 1, hi, clamp)
+        return torch.cat([before, x, after], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, lo, hi, clamp, axis = ctx.args
+        s, S = axis.index, axis.size
+        n = g.shape[dim] - lo - hi
+        g_lo, g_hi = g.narrow(dim, 0, lo), g.narrow(dim, lo + n, hi)
+        dx = g.narrow(dim, lo, n).clone()
+        got = all_gather(torch.cat([g_lo, g_hi], dim), axis)
+        if s < S - 1:
+            # the rank after's lo halo is my last lo rows
+            dx.narrow(dim, n - lo, lo).add_(got[s + 1].narrow(dim, 0, lo))
+        elif clamp:
+            dx.narrow(dim, n - 1, 1).add_(g_hi.sum(dim, keepdim=True))
+        if s > 0:
+            dx.narrow(dim, 0, hi).add_(got[s - 1].narrow(dim, lo, hi))
+        elif clamp:
+            dx.narrow(dim, 0, 1).add_(g_lo.sum(dim, keepdim=True))
+        return dx, None, None, None, None, None
+
+
+def _edge(x, dim, row, k, clamp):
+    """``k`` rows beyond the grid's edge next to ``row``: zeros, or with
+    ``clamp`` that row repeated."""
+    if clamp:
+        e = x.narrow(dim, row, 1)
+        return e.expand(*e.shape[:dim], k, *e.shape[dim + 1:])
+    shape = list(x.shape)
+    shape[dim] = k
+    return x.new_zeros(shape)
+
+
+def halo(x: torch.Tensor, dim: int, lo: int, hi: int, axis: Axis,
+         clamp: bool = False) -> torch.Tensor:
+    """Differentiable: this rank's rows of x along ``dim`` extended by
+    ``lo`` rows of the rank before and ``hi`` of the rank after on
+    ``axis`` (:func:`row_axis`), zeros at the grid's own edges or with
+    ``clamp`` the edge row repeated."""
+    if lo + hi == 0:
+        return x
+    return _Halo.apply(x, dim, lo, hi, clamp, axis)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows along ``dim`` (``counts`` of them, in rank
+    order), concatenated on every rank; the backward sums the gradient
+    over the axis and returns each rank its own rows."""
+
+    @staticmethod
+    def forward(ctx, x, dim, counts, axis):
+        ctx.args = (dim, counts, axis)
+        m = max(counts)
+        if x.shape[dim] < m:
+            x = torch.cat([x, _edge(x, dim, 0, m - x.shape[dim], False)],
+                          dim)
+        got = all_gather(x, axis)
+        return torch.cat([got[i].narrow(dim, 0, c)
+                          for i, c in enumerate(counts)], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, counts, axis = ctx.args
+        g = all_reduce_(g.clone(), axis)
+        start = sum(counts[:axis.index])
+        return (g.narrow(dim, start, counts[axis.index]).contiguous(), None,
+                None, None)
+
+
+@dataclasses.dataclass
+class RowSplit:
+    """This rank's BEV rows on ``axis`` (the mesh's ``space``): the
+    nested plan (:func:`split_rows`) of a grid whose coarsest level has
+    ``coarse`` rows."""
+
+    axis: Axis
+    coarse: int
+
+    def __post_init__(self):
+        split_rows(self.coarse, self.coarse, self.axis.size)  # or raise
+
+    def ranges(self, n: int) -> List[Tuple[int, int]]:
+        """Every rank's (start, stop) of a level of ``n`` rows."""
+        return split_rows(n, self.coarse, self.axis.size)
+
+    def take(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's rows of a whole grid x along ``dim``."""
+        a, b = self.ranges(x.shape[dim])[self.axis.index]
+        return x.narrow(dim, a, b - a)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole grid along ``dim`` from every rank's rows x
+        (differentiable, :class:`_GatherRows`)."""
+        a, b = split_rows(self.coarse, self.coarse,
+                          self.axis.size)[self.axis.index]
+        f = x.shape[dim] // (b - a)
+        if f * (b - a) != x.shape[dim]:
+            raise ValueError(f"{x.shape[dim]} rows are not a level of the "
+                             f"split of {self.coarse} coarse rows")
+        counts = [b - a for a, b in self.ranges(f * self.coarse)]
+        return _GatherRows.apply(x, dim, counts, self.axis)
+
+
+# ---------------------------------------------------------------------------
 # Global-batch BatchNorm statistics.
 # ---------------------------------------------------------------------------
 
-def bn_axis(mesh: Optional[Mesh], camera_split: bool) -> Optional[Axis]:
-    """The axis a training BatchNorm reduces its statistics over: the
-    ranks that hold different images (the world, for the per-camera
-    image stage) or different samples (``data``, for the BEV stages,
-    replicated over ``space``); None: local statistics."""
+def bn_axis(mesh: Optional[Mesh], world: bool) -> Optional[Axis]:
+    """The axis a training BatchNorm reduces its statistics over: with
+    ``world`` the world -- its ranks hold different images (the
+    per-camera image stage) or different BEV rows (the stages behind the
+    row split) --, else ``data``, the ranks with other samples (the heads
+    that run on gathered grids, copies over ``space``); None: local
+    statistics."""
     if mesh is None:
         return None
-    axis = mesh.world if camera_split else mesh.data
+    axis = mesh.world if world else mesh.data
     return axis if axis.group is not None else None
 
 
 class _SyncBatchNorm(torch.autograd.Function):
     """Train-mode affine BatchNorm over axis 1 with the statistics of every
     rank of ``axis``, biased variance, in float32.  Two-pass: the global mean,
-    then the global sum of squared deviations from it.  The backward sums
+    then the global sum of squared deviations from it; the count of values
+    is summed with the first pass's sums, since the ranks' BEV rows differ
+    in number (float32 counts are exact to 2^24 values).  The backward sums
     ``dy`` and ``dy * x_hat`` over the axis, since the statistics depend
     on every rank's input."""
 
@@ -273,9 +450,11 @@ class _SyncBatchNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, eps, axis):
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
-        n = x.numel() // x.shape[1] * axis.size
         xf = x.float()
-        mean = all_reduce_(xf.sum(dims), axis) / n
+        sums = all_reduce_(torch.cat([xf.sum(dims), xf.new_full(
+            (1,), x.numel() // x.shape[1])]), axis)
+        n = sums[-1]  # the values of every rank
+        mean = sums[:-1] / n
         xc = xf - mean.view(shape)
         var = all_reduce_((xc * xc).sum(dims), axis) / n
         invstd = torch.rsqrt(var + eps)

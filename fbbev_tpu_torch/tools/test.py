@@ -12,8 +12,8 @@ Usage:
         [--cfg-options key=value ...] [--device cuda|cpu]
 
 On several GPUs, one process per rank (``--space S`` splits each
-sample's cameras over S ranks; the confusion matrix is summed over the
-data ranks and rank 0 prints and writes the results):
+sample's cameras and BEV rows over S ranks; the confusion matrix is
+summed over the data ranks and rank 0 prints and writes the results):
 
     torchrun --standalone --nproc_per_node 2 -m fbbev_tpu_torch.tools.test \
         <config> --work-dir <dir> --devices 2 [--space 2]
@@ -42,7 +42,7 @@ def parse_args(argv=None):
                    help="mesh size: the number of ranks (torchrun "
                         "processes) or 'all'")
     p.add_argument("--space", type=int, default=None,
-                   help="camera-parallel mesh axis size")
+                   help="camera- and BEV-row-parallel mesh axis size")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)

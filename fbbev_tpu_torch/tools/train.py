@@ -13,7 +13,8 @@ logs go under ``--work-dir``, else the config's ``work_dir`` relative to
 the working directory: give a directory outside the source tree.
 
 On several GPUs, one process per rank (``data.batch_size`` is the global
-batch; ``--space S`` splits each sample's cameras over S ranks):
+batch; ``--space S`` splits each sample's cameras and BEV rows over S
+ranks):
 
     torchrun --standalone --nproc_per_node 4 -m fbbev_tpu_torch.tools.train \
         <config> --work-dir <dir> --devices 4 [--space 2]
@@ -37,8 +38,8 @@ def parse_args(argv=None):
                    help="mesh size: the number of ranks (torchrun "
                         "processes) or 'all'")
     p.add_argument("--space", type=int, default=None,
-                   help="camera-parallel mesh axis size (divides the "
-                        "ranks and the cameras)")
+                   help="camera- and BEV-row-parallel mesh axis size "
+                        "(divides the ranks and the cameras)")
     p.add_argument("--load-from", default=None,
                    help="warm-start checkpoint (.pth or a JAX .npz)")
     p.add_argument("--load-img-from", default=None,

@@ -13,7 +13,8 @@ fresh temporal state that is discarded afterwards.
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 A config that asks for a mesh (``devices``: the number of ranks, ``"all"``
-every rank; ``space``: the camera split, see ``fbbev_tpu_torch.parallel``)
+every rank; ``space``: the camera and BEV row split, see
+``fbbev_tpu_torch.parallel``)
 runs as one of that many processes (``torchrun``, or a process group
 initialised by the caller), each on its own device
 (``cuda:{LOCAL_RANK % device_count}``).  ``data.batch_size`` is then the
@@ -125,8 +126,8 @@ def mesh_layout(cfg: Config, world: Optional[int] = None):
     """(data, space) of the mesh ``cfg`` asks for, or None (one device):
     ``devices`` ranks (``"all"`` or unset: ``world``, else the process
     group's or ``torchrun``'s ``WORLD_SIZE``), ``space`` of them
-    splitting each sample's cameras.  Raises ``ValueError`` where ``space`` does not
-    divide the ranks or the model's cameras."""
+    splitting each sample's cameras and BEV rows.  Raises ``ValueError``
+    where ``space`` does not divide the ranks or the model's cameras."""
     devices, space = cfg.get("devices"), int(cfg.get("space") or 1)
     if not devices and space == 1:
         return None
@@ -351,9 +352,12 @@ def evaluate(cfg: Config, state=None, trainer=None,
     unreachable).
 
     With a mesh every rank runs this: each data index streams its own
-    slots (at most ``ceil(max_samples / data)`` samples), the confusion
-    matrix and ``n_samples`` are summed over ``data`` (JAX ``loop.py:
-    345-355``); the detection metric stays each rank's own, as there.
+    slots (at most ``ceil(max_samples / data)`` samples); under a 'space'
+    axis the model gathers its occupancy logits whole on every rank of
+    the row split (``FBOCC.forward``), so the 'space' ranks of a data
+    index hold the same confusion matrix, and it and ``n_samples`` are
+    summed over ``data`` (JAX ``loop.py:345-355``); the detection metric
+    stays each rank's own, as there.
     """
     mesh = make_train_mesh(cfg, device)
     dev = mesh.device if mesh is not None else torch.device(device)
@@ -406,8 +410,8 @@ def evaluate(cfg: Config, state=None, trainer=None,
                 break
     if mesh is not None:
         # int64 counts summed over the data indices (the space ranks of
-        # one hold the same), the one collective of the evaluation across
-        # data indices
+        # one hold the same: the logits are gathered over 'space'), the
+        # one collective of the evaluation across data indices
         counts = torch.from_numpy(np.append(metric.hist.ravel(), n_done)
                                   ).to(dev)
         parallel.all_reduce_(counts, mesh.data)

@@ -25,9 +25,11 @@ Under an active mesh (``fbbev_tpu_torch.parallel``) every rank computes
 its share of the global objective: the occupancy and detection losses of
 its own batch rows over the world size (meaned over the data shards, as
 JAX's ``_occ_losses_sharded`` and the reference's DDP ranks; the ``space``
-ranks of a data shard hold copies of it), the depth loss's sum over its
-own cameras over the foreground count of every rank (the global voxel
-mean).  One sum over the world of the flat gradient, with the losses
+ranks of a data shard hold copies of it, on the occupancy logits and the
+detection head's input that the model gathers over its BEV row split:
+the gather's backward sums the copies' gradients), the depth loss's sum
+over its own cameras over the foreground count of every rank (the global
+voxel mean).  One sum over the world of the flat gradient, with the losses
 packed behind it, then gives every rank the global step's gradient and
 metrics before the clip, so parameters, optimizer state and EMA stay
 equal on every rank.
