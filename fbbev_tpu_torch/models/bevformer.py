@@ -14,6 +14,16 @@ to ``max_queries_per_cam``; the per-camera results are gathered back with
 once (:meth:`BackwardProjection.static_terms`, with the dense
 depth-sampling matrix); training computes it from each batch's cameras and
 samples the predicted depth at the anchors with bilinear gathers.
+
+The dtype flow is flax's (``fbbev_tpu/models/bevformer.py``): the BEV
+query embedding, the positional embeddings and the LayerNorms are float32
+in a bf16 model (:meth:`BackwardProjection.float32_islands`,
+``layers.LayerNorm``), so the query stream is float32 from the seeded query
+on; each Linear casts its input to the model's type and adds its bias
+after the product (``layers.Linear``, flax's ``nn.Dense``), and its bf16
+output joins the stream in the residual sums, which are float32.  The
+sampled values are float32 (K3's result), cast back at the output
+projections.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from fbbev_tpu_torch import geometry, parallel
 from fbbev_tpu_torch.ops import deform_attn, pallas_sample
+from fbbev_tpu_torch.models.layers import LayerNorm, Linear, softmax
 from fbbev_tpu_torch.ops.deform_attn import bilinear_sample_matrix
 
 
@@ -50,9 +61,9 @@ def msda_offset_bias(num_heads: int, num_levels: int, num_points: int,
 
 def _msda_linears(m: nn.Module, C: int, heads: int, L: int, P: int,
                   Z: int = 1):
-    m.sampling_offsets = nn.Linear(C, heads * L * P * 2)
-    m.attention_weights = nn.Linear(C, heads * L * P)
-    m.value_proj = nn.Linear(C, C)
+    m.sampling_offsets = Linear(C, heads * L * P * 2)
+    m.attention_weights = Linear(C, heads * L * P)
+    m.value_proj = Linear(C, C)
     with torch.no_grad():
         m.sampling_offsets.weight.zero_()
         m.sampling_offsets.bias.copy_(torch.from_numpy(
@@ -86,7 +97,7 @@ class DeformableSelfAttention(nn.Module):
         super().__init__()
         self.heads, self.P = num_heads, num_points
         _msda_linears(self, embed_dims, num_heads, 1, num_points)
-        self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.output_proj = Linear(embed_dims, embed_dims)
 
     def forward(self, query, query_pos, ref_2d, spatial_shape):
         B, Q, C = query.shape
@@ -94,13 +105,13 @@ class DeformableSelfAttention(nn.Module):
         q = query + query_pos
         v = self.value_proj(query).reshape(B, Q, self.heads, -1)
         off = self.sampling_offsets(q).reshape(B, Q, self.heads, self.P, 2)
-        attn = torch.softmax(self.attention_weights(q).reshape(
-            B, Q, self.heads, self.P), dim=-1)
+        attn = softmax(self.attention_weights(q).reshape(
+            B, Q, self.heads, self.P), -1)
         norm = torch.tensor([W, H], dtype=torch.float32,
                             device=query.device)
         loc = ref_2d[:, :, None, None, :] + off / norm
         out = _attend(self, selfattn=True)(v, (H, W), loc, attn)
-        return self.output_proj(out.to(query.dtype)) + query
+        return self.output_proj(out) + query
 
 
 def _attend(m: nn.Module, selfattn: bool = False):
@@ -136,8 +147,8 @@ class DepthAwareDeformableAttention(nn.Module):
         each = P // Z
         v = self.value_proj(value).reshape(Bp, -1, heads, C // heads)
         off = self.sampling_offsets(query).reshape(Bp, K, heads, each, Z, 2)
-        attn = torch.softmax(self.attention_weights(query).reshape(
-            Bp, K, heads, P), dim=-1)
+        attn = softmax(self.attention_weights(query).reshape(
+            Bp, K, heads, P), -1)
         norm = torch.tensor([W, H], dtype=torch.float32,
                             device=query.device)
         loc = (ref_points[:, :, None, None, :, :] + off / norm).reshape(
@@ -206,7 +217,7 @@ class DepthAwareSpatialCrossAttention(nn.Module):
         super().__init__()
         self.deformable_attention = DepthAwareDeformableAttention(
             embed_dims, 8, num_points, num_z_anchors)
-        self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.output_proj = Linear(embed_dims, embed_dims)
 
     def forward(self, query, query_pos, cam_feats, pred_depth, t):
         """query (B, Q, C); cam_feats (B, N, Hf, Wf, C); pred_depth
@@ -222,7 +233,7 @@ class DepthAwareSpatialCrossAttention(nn.Module):
         qd = torch.gather(q[:, None].expand(B, N, Q, C), 2,
                           idx[..., None].expand(B, N, K, C))
         out = self.deformable_attention(
-            qd.reshape(B * N, K, C), value.to(query.dtype),
+            qd.reshape(B * N, K, C), value,
             t["ref_k"].reshape(B * N, K, Z, 2), (Hf, Wf),
             t["oh_k"].reshape(B * N, K, Z, DC), pd,
             t["dsmat"].reshape(B * N, K * Z, Hf * Wf) if "dsmat" in t
@@ -235,16 +246,16 @@ class DepthAwareSpatialCrossAttention(nn.Module):
         # under a mesh, the other 'space' ranks' cameras add in
         slots = parallel.all_reduce_sum(slots, "space")
         slots = slots.reshape(B, Q, C) / t["count"][..., None]
-        return self.output_proj(slots.to(query.dtype)) + query
+        return self.output_proj(slots) + query
 
 
 class FFN(nn.Module):
     def __init__(self, embed_dims: int, feedforward_channels: int):
         super().__init__()
         self.layers = nn.Sequential(
-            nn.Sequential(nn.Linear(embed_dims, feedforward_channels),
+            nn.Sequential(Linear(embed_dims, feedforward_channels),
                           nn.ReLU()),
-            nn.Linear(feedforward_channels, embed_dims))
+            Linear(feedforward_channels, embed_dims))
 
     def forward(self, x):
         return self.layers(x) + x
@@ -260,7 +271,7 @@ class BEVFormerEncoderLayer(nn.Module):
             DepthAwareSpatialCrossAttention(embed_dims)])
         self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels)])
         self.norms = nn.ModuleList(
-            nn.LayerNorm(embed_dims, eps=1e-5) for _ in range(3))
+            LayerNorm(embed_dims, eps=1e-5) for _ in range(3))
 
     def forward(self, query, bev_pos, ref_2d, bev_hw, cam_feats, pred_depth,
                 terms):
@@ -300,6 +311,12 @@ class BackwardProjection(nn.Module):
         self.transformer.encoder.layers = nn.ModuleList(
             [BEVFormerEncoderLayer(embed_dims, feedforward_channels)])
 
+    def float32_islands(self):
+        """The query and positional embeddings, float32 in a bf16 model as
+        JAX's ``self.param`` / ``nn.Embed`` without a dtype (the
+        LayerNorms declare themselves)."""
+        return [self.bev_embedding, self.positional_encoding]
+
     def static_terms(self, cam: geometry.CamParams, num_depth_bins: int,
                      feat_hw: Optional[Tuple[int, int]] = None
                      ) -> Dict[str, torch.Tensor]:
@@ -321,7 +338,8 @@ class BackwardProjection(nn.Module):
 
     def forward(self, cam_feats, lss_bev, pred_depth, terms=None, cam=None):
         """cam_feats (B, N, Hf, Wf, C); lss_bev (B, H, W, C); pred_depth
-        (B, N, DC, Hf, Wf) -> refined (B, H, W, C).  ``terms``: the
+        (B, N, DC, Hf, Wf) -> refined (B, H, W, C) float32 (the query
+        stream, whatever the model's type).  ``terms``: the
         serving hoist (:meth:`static_terms`); without it they are computed
         from ``cam``, without the depth-sampling matrix."""
         if terms is None:

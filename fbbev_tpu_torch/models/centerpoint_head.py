@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fbbev_tpu_torch.models.layers import ConvModule
+from fbbev_tpu_torch.models.layers import Conv2d, ConvModule
 from fbbev_tpu_torch.ops.boxes import circle_nms, top_k_2d
 from fbbev_tpu_torch.registry import HEADS
 
@@ -64,7 +64,7 @@ class SeparateHead(nn.Module):
             self.add_module(name, nn.Sequential(
                 ConvModule(2, in_channels, head_conv, 3, padding=1,
                            bias=True, pallas3x3=pallas3x3),
-                nn.Conv2d(head_conv, ch, 3, padding=1, bias=True)))
+                Conv2d(head_conv, ch, 3, padding=1, bias=True)))
         self.init_heatmap_bias()
 
     @torch.no_grad()

@@ -17,7 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fbbev_tpu_torch.models.layers import LayerNorm, cast_in, same_pad
+from fbbev_tpu_torch.models.layers import Conv2d, LayerNorm, cast_in, \
+    same_pad
 from fbbev_tpu_torch.registry import BACKBONES
 
 SPECS = {
@@ -31,7 +32,7 @@ LAYER_SCALE_INIT = 1e-6
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.depthwise_conv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.depthwise_conv = Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = LayerNorm(dim, eps=1e-6)
         self.pointwise_conv1 = nn.Linear(dim, 4 * dim)
         self.pointwise_conv2 = nn.Linear(4 * dim, dim)
@@ -60,11 +61,11 @@ class ConvNeXt(nn.Module):
         self.out_indices = tuple(out_indices)
         dims = spec["dims"]
         self.downsample_layers = nn.ModuleList([nn.Sequential(
-            nn.Conv2d(3, dims[0], 4, stride=4), LayerNorm(dims[0], eps=1e-6))])
+            Conv2d(3, dims[0], 4, stride=4), LayerNorm(dims[0], eps=1e-6))])
         for i in range(1, len(dims)):
             self.downsample_layers.append(nn.Sequential(
                 LayerNorm(dims[i - 1], eps=1e-6),
-                nn.Conv2d(dims[i - 1], dims[i], 2, stride=2)))
+                Conv2d(dims[i - 1], dims[i], 2, stride=2)))
         self.stages = nn.ModuleList(
             nn.Sequential(*(ConvNeXtBlock(d) for _ in range(n)))
             for n, d in zip(spec["depths"], dims))
@@ -72,9 +73,9 @@ class ConvNeXt(nn.Module):
             setattr(self, f"norm{i}", LayerNorm(dims[i], eps=1e-6))
 
     def float32_islands(self):
-        """The LayerNorms and the layer scales, float32 in a bf16 model."""
-        return ([m for m in self.modules() if isinstance(m, LayerNorm)]
-                + [b.gamma for s in self.stages for b in s])
+        """The layer scales, float32 in a bf16 model (the LayerNorms
+        declare themselves)."""
+        return [b.gamma for s in self.stages for b in s]
 
     def forward(self, x):
         outs = []

@@ -3,8 +3,12 @@
 ``get_mlp_input``, ``depth_loss``).  The camera vector's BatchNorm, MLPs
 and SE gates stay float32 whatever the model dtype, as in the JAX package
 (in training that BatchNorm takes its batch statistics over the cameras
-in float32); the depth softmax is taken in float32.  ``pallas3x3`` routes
-the reduce conv and the basic blocks' 3x3 convs to K7."""
+in float32); the depth softmax is taken in float32.  The dtype flow is
+JAX's: the SE products are float32 (a bf16 map times a float32 gate), so
+in a bf16 model the depth branch's basic blocks carry a float32 residual
+stream; the convs cast their input to the model's type
+(``layers.FlaxConv``).  ``pallas3x3`` routes the reduce conv and the basic
+blocks' 3x3 convs to K7."""
 
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fbbev_tpu_torch.models.layers import (
-    BasicBlock, Mlp, SELayer, bn, conv, conv_bn_relu)
+    BasicBlock, Conv2d, Mlp, SELayer, bn, conv, conv_bn_relu)
 
 
 class ASPP(nn.Module):
@@ -65,16 +69,17 @@ class CM_DepthNet(nn.Module):
                                         pallas3x3=pallas3x3)
         self.context_mlp = Mlp(27, m, m)
         self.context_se = SELayer(m)
-        self.context_conv = nn.Conv2d(m, context_channels, 1, bias=True)
+        self.context_conv = Conv2d(m, context_channels, 1, bias=True)
         self.depth_mlp = Mlp(27, m, m)
         self.depth_se = SELayer(m)
         self.depth_conv = nn.Sequential(
             *(BasicBlock(m, m, pallas3x3=pallas3x3) for _ in range(3)),
-            ASPP(m, m), nn.Conv2d(m, depth_channels, 1, bias=True))
+            ASPP(m, m), Conv2d(m, depth_channels, 1, bias=True))
 
     def float32_islands(self):
-        """Submodules kept in float32 under a bf16 model."""
-        return [self.bn, self.context_mlp, self.depth_mlp, self.context_se,
+        """Submodules kept in float32 under a bf16 model (the camera
+        vector's BatchNorm declares itself)."""
+        return [self.context_mlp, self.depth_mlp, self.context_se,
                 self.depth_se]
 
     def forward(self, x, mlp_input):

@@ -35,7 +35,8 @@ from fbbev_tpu_torch.models.depth_net import CM_DepthNet, get_mlp_input
 from fbbev_tpu_torch.models.fpn import CustomFPN
 from fbbev_tpu_torch.models.fpn3d import FPN3D
 from fbbev_tpu_torch.models.layers import (BatchNorm, RingCatConvBN,
-                                           TimeEmbedConvBN)
+                                           TimeEmbedConvBN,
+                                           cast_with_islands)
 from fbbev_tpu_torch.models.lss import LSSViewTransformer3D
 from fbbev_tpu_torch.models.occ_head import OccHead
 from fbbev_tpu_torch.models.resnet3d import CustomResNet3D
@@ -267,19 +268,10 @@ class FBOCC(nn.Module):
         self.eval()
 
     def cast(self, dtype: torch.dtype) -> "FBOCC":
-        """Computes in ``dtype`` from now on: every parameter and buffer
-        cast to it, except the float32 islands of the depth net and of the
-        image backbone (modules, or single parameters)."""
+        """Computes in ``dtype`` from now on, with the float32 islands the
+        modules declare (``layers.cast_with_islands``)."""
         self.dtype = dtype
-        self.to(dtype=dtype)
-        islands = list(self.depth_net.float32_islands())
-        if hasattr(self.img_backbone, "float32_islands"):
-            islands += self.img_backbone.float32_islands()
-        for m in islands:
-            if isinstance(m, nn.Parameter):
-                m.data = m.data.float()
-            else:
-                m.float()
+        cast_with_islands(self, dtype)
         return self
 
     # ------------------------------------------------------------------
@@ -431,12 +423,16 @@ class FBOCC(nn.Module):
             mat = geometry.flow_matrix_from_grid_args(
                 hist_augs, forward_augs, curr_to_prev, f2b)
             # eval: K5 where its gate holds, as the JAX package's
-            # fallback (fbocc.py:445-453)
-            if self.training or not pallas_warp.supports(hist_zyx.shape):
-                warp = pallas_warp.warp_affine_3d_plain
+            # fallback (fbocc.py:445-453), else its plain version with the
+            # weights rounded as JAX's eval warps round them
+            if self.training:
+                sampled = pallas_warp.warp_affine_3d_plain(hist_zyx, mat)
+            elif pallas_warp.supports(hist_zyx.shape):
+                sampled = pallas_warp.warp_affine_3d(hist_zyx, mat)
             else:
-                warp = pallas_warp.warp_affine_3d
-            sampled = warp(hist_zyx, mat).to(dt)           # (B, Y, X, Z, TC)
+                sampled = pallas_warp.warp_affine_3d_plain(
+                    hist_zyx, mat, round_weights=True)
+            sampled = sampled.to(dt)                       # (B, Y, X, Z, TC)
             new_hist = torch.cat([curr_all, sampled[..., :(T - 1) * C]],
                                  -1).permute(0, 3, 1, 2, 4).contiguous()
         if split is not None:

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fbbev_tpu_torch.models.layers import bn, conv
+from fbbev_tpu_torch.models.layers import Conv2d, bn, conv
 from fbbev_tpu_torch.registry import HEADS
 
 
@@ -31,7 +31,7 @@ class FRPN(nn.Module):
         self.mask_net = nn.Sequential(
             conv(2, in_channels, mid, 3, padding=1, pallas3x3=pallas3x3),
             bn(2, mid), nn.ReLU(),
-            nn.Conv2d(mid, 1, 3, padding=1, bias=True))
+            Conv2d(mid, 1, 3, padding=1, bias=True))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, C, H, W) BEV feature -> (B, H, W) float32 mask logits."""

@@ -23,8 +23,13 @@ convolutions built with ``pallas_conv3d=True`` take it in eval
 BatchNorm has flax semantics (:func:`batch_norm`): in train mode it
 normalises with the biased batch variance and updates the running
 statistics with it, ``running = 0.9 * running + 0.1 * batch``, the batch
-statistics taken in float32 (the running statistics are float32 in
-training: the ``Trainer`` makes every BatchNorm float32).
+statistics taken in float32.  Its parameters and running statistics
+stay float32 in a bf16 model (a float32 island, :func:`cast_with_islands`)
+and a bf16 input is normalised in float32, as flax's BatchNorm does.
+
+Below float32 the layers round where flax's do (:class:`FlaxConv`,
+:class:`Linear`, :func:`softmax`, :func:`resize_trilinear`); in float32
+and wider they run PyTorch's fused kernels, within float32 rounding.
 
 The BEV row split.  ``FBOCC`` marks the modules of its BEV stages
 (``row_split``: the 3D convs, BatchNorms, FPN3D and the occ head; the
@@ -51,7 +56,56 @@ from fbbev_tpu_torch.ops import pallas_conv
 from fbbev_tpu_torch.ops import pallas_conv3d as conv3d_k6
 
 
-class Conv3x3K7(nn.Conv2d):
+class FlaxConv:
+    """Conv mixin with the dtype semantics of flax's ``nn.Conv`` built with
+    a ``dtype``: the input is cast to the weight's type (a float32 input
+    reaches a bf16 model's conv where JAX's dtype flow makes one, as in
+    the depth net's residual stream), and below float32 the bias is added
+    to the conv's result in the result's type, a second rounding
+    (:func:`bias_after`).  An int8 conv (``utils/quantize.py``) replaces
+    ``forward`` and quantizes the input uncast, as JAX's does."""
+
+    def _conv_forward(self, x, weight, bias):
+        if not bias_after(weight):
+            return super()._conv_forward(x.to(weight.dtype), weight, bias)
+        return add_bias(super()._conv_forward(x.to(weight.dtype), weight,
+                                              None), bias)
+
+
+def bias_after(weight: torch.Tensor) -> bool:
+    """Whether a conv or Linear on ``weight`` adds its bias to its rounded
+    product, as flax's layers do in their ``dtype``: below float32, where
+    that rounding shows (PyTorch's cuDNN path adds it so on the card;
+    oneDNN on the CPU would fold it into the float32 accumulation).  In
+    float32 and wider the bias stays inside the product, the faster
+    kernel, within float32 rounding of flax's."""
+    return weight.dtype.itemsize < 4
+
+
+def add_bias(y: torch.Tensor, bias) -> torch.Tensor:
+    """``y`` (N, C, ...) plus ``bias`` (C,) in y's type."""
+    if bias is None:
+        return y
+    return y + bias.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 2))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with the dtype semantics of flax's ``nn.Dense`` built
+    with a ``dtype``: the input cast to the weight's type, the bias added
+    to the rounded product below float32 (:func:`bias_after`)."""
+
+    def forward(self, x):
+        x = x.to(self.weight.dtype)
+        if not bias_after(self.weight) or self.bias is None:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight) + self.bias
+
+
+class Conv2d(FlaxConv, nn.Conv2d):
+    """``nn.Conv2d`` with flax's dtype semantics (:class:`FlaxConv`)."""
+
+
+class Conv3x3K7(Conv2d):
     """3x3 stride-1 padding-1 ``nn.Conv2d`` whose forward and input
     gradient run on K7 (``ops/pallas_conv.py``) wherever the JAX routing
     gate :func:`pallas_conv.supports` holds for the input, and on
@@ -61,14 +115,13 @@ class Conv3x3K7(nn.Conv2d):
     def forward(self, x):
         if not pallas_conv.supports(x.shape, self.out_channels):
             return super().forward(x)
-        y = pallas_conv.conv3x3(x, self.weight)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)[:, None, None]
-        return y
+        return add_bias(pallas_conv.conv3x3(x.to(self.weight.dtype),
+                                            self.weight), self.bias)
 
 
-class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` on ``(B, C, Y, X, Z)`` tensors.  With ``row_split``
+class Conv3d(FlaxConv, nn.Conv3d):
+    """``nn.Conv3d`` on ``(B, C, Y, X, Z)`` tensors with flax's dtype
+    semantics (:class:`FlaxConv`).  With ``row_split``
     (module docstring) and an active row split, x is this rank's Y rows
     and so is the result: the conv fetches the rows its window reaches
     beyond them (``padding`` before, ``k - stride - padding`` after: one
@@ -79,6 +132,7 @@ class Conv3d(nn.Conv3d):
     row_split = False
 
     def forward(self, x):
+        x = x.to(self.weight.dtype)
         axis = parallel.row_axis() if self.row_split else None
         if axis is None or self.kernel_size[0] == 1:
             return self.conv(x)
@@ -97,9 +151,11 @@ class Conv3d(nn.Conv3d):
 
     def conv_rows(self, x, axis):
         xe = parallel.halo(x, 2, *self.halo_rows(), axis)
-        return F.conv3d(xe, self.weight, self.bias, self.stride,
-                        (0,) + tuple(self.padding[1:]), self.dilation,
-                        self.groups)
+        after = bias_after(self.weight)
+        y = F.conv3d(xe, self.weight, None if after else self.bias,
+                     self.stride, (0,) + tuple(self.padding[1:]),
+                     self.dilation, self.groups)
+        return add_bias(y, self.bias) if after else y
 
 
 class Conv3dZSlabK7(Conv3d):
@@ -129,10 +185,7 @@ class Conv3dZSlabK7(Conv3d):
             y = pallas_conv.conv3x3(xs, self.weight[..., dz])
             y = y.permute(0, 2, 3, 1).reshape(B, Z, Y, X, -1)
             out = y if out is None else out + y
-        out = out.permute(0, 4, 2, 3, 1)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)[:, None, None, None]
-        return out
+        return add_bias(out.permute(0, 4, 2, 3, 1), self.bias)
 
 
 class Conv3dK6(Conv3dZSlabK7):
@@ -154,10 +207,8 @@ class Conv3dK6(Conv3dZSlabK7):
         B, C, Y, X, Z = x.shape
         if not self.training and conv3d_k6.supports((B, Y, X, Z, C),
                                                     self.out_channels):
-            y = conv3d_k6.conv3d_3x3x3(x, self.weight)
-            if self.bias is not None:
-                y = y + self.bias.to(y.dtype)[:, None, None, None]
-            return y
+            return add_bias(conv3d_k6.conv3d_3x3x3(x, self.weight),
+                            self.bias)
         if self.zslab:
             return super().conv(x)
         return nn.Conv3d.forward(self, x)
@@ -200,7 +251,7 @@ def conv(ndim: int, cin: int, cout: int, k: int, stride: int = 1,
         if pallas3x3:
             cls = Conv3x3K7 if ndim == 2 else Conv3dZSlabK7
             return cls(cin, cout, 3, padding=1, bias=bias)
-    cls = nn.Conv2d if ndim == 2 else Conv3d
+    cls = Conv2d if ndim == 2 else Conv3d
     return cls(cin, cout, k, stride=stride, padding=padding,
                dilation=dilation, bias=bias)
 
@@ -265,8 +316,38 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     camera_split = False  # in the per-camera image stage (FBOCC sets it)
     row_split = False  # behind the BEV row split (FBOCC sets it)
 
+    def float32_islands(self):
+        """Itself: flax's BatchNorm keeps its scale, shift and statistics
+        in float32 and normalises a bf16 input in float32, rounding only
+        its result to the input's type; so does ``F.batch_norm`` on float32
+        parameters."""
+        return [self]
+
     def forward(self, x):
         return batch_norm(self, x, 1)
+
+
+def cast_with_islands(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every floating parameter and buffer of ``model`` cast to ``dtype``,
+    except the float32 islands that its modules declare with a
+    ``float32_islands()`` method (modules, or single parameters): what the
+    JAX package keeps and computes with in float32 in a bf16 model -- every
+    BatchNorm (:class:`BatchNorm`) and :class:`LayerNorm`, the BEVFormer
+    embeddings, the depth net's camera branch, ConvNeXt's layer scales and
+    Swin's bias tables.  Islands take float32 or ``dtype`` where that is
+    wider (float64).  Each tensor is cast once from its own values: an
+    island never passes through ``dtype``."""
+    wide = torch.promote_types(torch.float32, dtype)
+    keep = set()
+    for mod in model.modules():
+        for m in getattr(mod, "float32_islands", list)():
+            ts = ([m] if isinstance(m, nn.Parameter)
+                  else list(m.parameters()) + list(m.buffers()))
+            keep.update(id(t) for t in ts)
+    for t in list(model.parameters()) + list(model.buffers()):
+        if t.is_floating_point():
+            t.data = t.data.to(wide if id(t) in keep else dtype)
+    return model
 
 
 def bn(ndim: int, c: int):
@@ -351,6 +432,8 @@ class BasicBlock(nn.Module):
                                            bias=bias, relu=False)
 
     def forward(self, x):
+        # a float32 x (the depth net's residual stream in a bf16 model)
+        # stays float32 in the residual sum (the convs cast it)
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         r = x if self.downsample is None else self.downsample(x)
@@ -408,12 +491,14 @@ class SELayer(nn.Module):
         self.conv_expand = nn.Conv2d(channels, channels, 1, bias=True)
 
     def forward(self, x, x_se):
-        """x (B, C, H, W); x_se (B, C)."""
+        """x (B, C, H, W); x_se (B, C).  The gate keeps the type of its
+        weights: float32 ones (the depth net's islands) make the product
+        float32, as JAX's product of a bf16 x and a float32 gate is."""
         se = F.linear(x_se, self.conv_reduce.weight[:, :, 0, 0],
                       self.conv_reduce.bias)
         se = F.linear(F.relu(se), self.conv_expand.weight[:, :, 0, 0],
                       self.conv_expand.bias)
-        return x * torch.sigmoid(se).to(x.dtype)[:, :, None, None]
+        return x * torch.sigmoid(se)[:, :, None, None]
 
 
 def max_pool_same(x, window: int, strides: int):
@@ -454,9 +539,26 @@ class LayerNorm(nn.LayerNorm):
     computes and returns on float32 parameters; its parameters are kept in
     float32 under a bf16 model (:meth:`FBOCC.cast`)."""
 
+    def float32_islands(self):
+        return [self]
+
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(), self.eps)
+        t = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.to(t), self.normalized_shape,
+                            self.weight.to(t), self.bias.to(t), self.eps)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Softmax as ``jax.nn.softmax`` computes it in x's type: below
+    float32, ``x - max``, its exp and the quotient by their sum each
+    rounded to x's type (the sum taken in float32, as ``jnp.sum`` upcasts
+    a bf16 reduction), three roundings where ``torch.softmax`` makes one;
+    in float32 and wider ``torch.softmax``, within float32 rounding of
+    it."""
+    if x.dtype.itemsize >= 4:
+        return torch.softmax(x, dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True, dtype=torch.float32).to(e.dtype)
 
 
 def upsample_nearest(x, out_hw: Tuple[int, int]):
@@ -478,9 +580,9 @@ def upsample_int_axis(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
     if s == 1:
         return x
     n = x.shape[axis]
-    i = torch.arange(n, device=x.device)
-    prev = x.index_select(axis, (i - 1).clamp(min=0))
-    nxt = x.index_select(axis, (i + 1).clamp(max=n - 1))
+    # one edge-padded copy; prev, x and next are views of it, as JAX's
+    xe = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)],
+                   axis)
 
     def rnd(w: float) -> float:
         return float(torch.tensor(w, dtype=x.dtype))
@@ -488,12 +590,11 @@ def upsample_int_axis(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
     phases = []
     for k in range(s):
         c = (k + 0.5) / s - 0.5
-        if c < 0:
-            w = c + 1.0  # lerp(prev, x, w)
-            phases.append(rnd(1.0 - w) * prev + rnd(w) * x)
-        else:
-            w = c  # lerp(x, next, w)
-            phases.append(rnd(1.0 - w) * x + rnd(w) * nxt)
+        # lerp(prev, x, c + 1) before the sample's centre, else
+        # lerp(x, next, c)
+        i0, w = (0, c + 1.0) if c < 0 else (1, c)
+        phases.append(rnd(1.0 - w) * xe.narrow(axis, i0, n)
+                      + rnd(w) * xe.narrow(axis, i0 + 1, n))
     shape = list(x.shape)
     shape[axis] *= s
     return torch.stack(phases, dim=axis + 1).reshape(shape)
@@ -507,29 +608,45 @@ UPSAMPLE_HALO = 1
 def resize_trilinear(x, out_size: Sequence[int], rows: bool = False):
     """Trilinear resize of ``(B, C, D, H, W)`` with half-pixel centres and
     edge clamp (align_corners=False), the JAX package's
-    ``resize_trilinear`` for upsampling.  With ``rows`` and an active row
-    split, x and the result are this rank's rows of D (the BEV Y axis, an
-    integer factor finer in the result): D is upsampled by
-    :func:`upsample_int_axis` on the rows with one halo row of each
-    neighbour (the edge row repeated at the grid's own edges: the clamp)
-    and cropped, then H and W as above."""
+    ``resize_trilinear`` (``layers.py:607``).  Below float32 at integer
+    factors, its rounding: a 2-tap lerp per axis (:func:`upsample_int_axis`),
+    W first, then H, then D, each rounded in x's type; in float32 and wider
+    (and at other sizes) ``F.interpolate``, one rounding, within float32
+    rounding of the chain.  With ``rows`` and an active row split, x and
+    the result are this rank's rows of D (the BEV Y axis, an integer factor
+    finer in the result): D is upsampled by :func:`upsample_int_axis` on
+    the rows with one halo row of each neighbour (the edge row repeated at
+    the grid's own edges: the clamp) and cropped."""
+    factors = [o // n if o % n == 0 else 0
+               for o, n in zip(out_size, x.shape[2:])]
     axis = parallel.row_axis() if rows else None
-    if axis is None:
+    if x.dtype.itemsize >= 4 or not all(factors):
+        if axis is None:
+            return F.interpolate(x, size=tuple(out_size), mode="trilinear",
+                                 align_corners=False)
+        x = _upsample_rows(x, factors[0], axis)
+        if tuple(x.shape[3:]) == tuple(out_size[1:]):
+            return x
         return F.interpolate(x, size=tuple(out_size), mode="trilinear",
                              align_corners=False)
-    n = x.shape[2]
-    s = out_size[0] // n
-    if s * n != out_size[0]:
-        raise ValueError(f"split rows {n} -> {out_size[0]}: not an "
-                         "integer factor")
-    if s > 1:
-        x = upsample_int_axis(parallel.halo(
-            x, 2, UPSAMPLE_HALO, UPSAMPLE_HALO, axis, clamp=True), 2, s)
-        x = x[:, :, s * UPSAMPLE_HALO:s * (UPSAMPLE_HALO + n)]
-    if tuple(x.shape[3:]) == tuple(out_size[1:]):
+    x = upsample_int_axis(upsample_int_axis(x, 4, factors[2]), 3,
+                          factors[1])
+    if axis is None:
+        return upsample_int_axis(x, 2, factors[0])
+    return _upsample_rows(x, factors[0], axis)
+
+
+def _upsample_rows(x, s: int, axis):
+    """D of this rank's rows upsampled ``s`` times on the rows and one
+    clamped halo row each side, cropped (:func:`resize_trilinear`)."""
+    if not s:
+        raise ValueError(f"split rows {x.shape[2]}: not an integer factor")
+    if s == 1:
         return x
-    return F.interpolate(x, size=tuple(out_size), mode="trilinear",
-                         align_corners=False)
+    n = x.shape[2]
+    x = upsample_int_axis(parallel.halo(
+        x, 2, UPSAMPLE_HALO, UPSAMPLE_HALO, axis, clamp=True), 2, s)
+    return x[:, :, s * UPSAMPLE_HALO:s * (UPSAMPLE_HALO + n)]
 
 
 class TimeEmbedConvBN(nn.Sequential):
@@ -541,13 +658,20 @@ class TimeEmbedConvBN(nn.Sequential):
         super().__init__(nn.Conv3d(cin + 1, cout, 1, bias=True),
                          bn(3, cout), nn.ReLU())
 
+    def float32_islands(self):
+        """The conv's kernel and bias stay float32 in a bf16 model and are
+        cast at use, as flax's: the K1 epilogue folds the eval BatchNorm
+        into them from their float32 values, as JAX's does
+        (``fbocc.py:388-398``)."""
+        return [self[0]]
+
     def kernel(self) -> torch.Tensor:
         """(C+1, F) matrix of the 1x1x1 conv."""
         return self[0].weight[:, :, 0, 0, 0].t()
 
     def forward(self, x, e):
-        k = self.kernel()
-        y = x @ k[:-1] + e.to(x.dtype) * k[-1] + self[0].bias
+        k = self.kernel().to(x.dtype)
+        y = x @ k[:-1] + e.to(x.dtype) * k[-1] + self[0].bias.to(x.dtype)
         return F.relu(channels_last_bn(self[1], y))
 
 

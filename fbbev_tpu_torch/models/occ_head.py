@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from fbbev_tpu_torch import parallel
 from fbbev_tpu_torch.models import losses as L
 from fbbev_tpu_torch.models.layers import bn, conv, conv_bn_relu, \
-    resize_trilinear
+    resize_trilinear, softmax
 from fbbev_tpu_torch.ops import pallas_occ_fuse, pallas_occ_tail
 
 
@@ -77,7 +77,7 @@ class OccHead(nn.Module):
         the model's (``FBOCC.bev_split``)."""
         outs = [self.deblock(voxel_feats[0])] + [
             m(f) for m, f in zip(self.occ_convs, voxel_feats)]
-        w = torch.softmax(self.voxel_soft_weights(outs[0]), dim=1)
+        w = softmax(self.voxel_soft_weights(outs[0]), 1)
         target = outs[0].shape[2:]
         conv1, bn1 = self.occ_pred_conv[0], self.occ_pred_conv[1]
         coarse = self.coarse_pred and not self.training

@@ -25,7 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fbbev_tpu_torch.models.layers import LayerNorm, cast_in, same_pad
+from fbbev_tpu_torch.models.layers import Conv2d, LayerNorm, cast_in, \
+    same_pad
 from fbbev_tpu_torch.registry import BACKBONES
 
 SPECS = {
@@ -187,7 +188,7 @@ class SwinStage(nn.Module):
 class PatchEmbed(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.projection = nn.Conv2d(3, dim, 4, stride=4)
+        self.projection = Conv2d(3, dim, 4, stride=4)
         self.norm = LayerNorm(dim, eps=1e-5)
 
 
@@ -212,10 +213,10 @@ class SwinTransformer(nn.Module):
             setattr(self, f"norm{i}", LayerNorm(C * 2 ** i, eps=1e-5))
 
     def float32_islands(self):
-        """The LayerNorms and the bias tables, float32 in a bf16 model."""
-        return ([m for m in self.modules() if isinstance(m, LayerNorm)]
-                + [m.relative_position_bias_table for m in self.modules()
-                   if isinstance(m, WindowMSA)])
+        """The bias tables, float32 in a bf16 model (the LayerNorms
+        declare themselves)."""
+        return [m.relative_position_bias_table for m in self.modules()
+                if isinstance(m, WindowMSA)]
 
     def forward(self, x):
         pe = self.patch_embed

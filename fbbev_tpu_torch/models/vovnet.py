@@ -21,8 +21,8 @@ from collections import OrderedDict
 import torch
 import torch.nn as nn
 
-from fbbev_tpu_torch.models.layers import bn, checkpoint_stage, conv, \
-    max_pool_ceil
+from fbbev_tpu_torch.models.layers import Conv2d, bn, checkpoint_stage, \
+    conv, max_pool_ceil
 from fbbev_tpu_torch.registry import BACKBONES
 
 STAGE_SPECS = {
@@ -56,7 +56,7 @@ class ESEModule(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.fc = nn.Conv2d(channels, channels, 1, bias=True)
+        self.fc = Conv2d(channels, channels, 1, bias=True)
 
     def forward(self, x):
         s = self.fc(x.mean(dim=(2, 3), keepdim=True))

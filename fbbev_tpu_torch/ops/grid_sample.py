@@ -41,10 +41,12 @@ def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor,
 
 
 def grid_sample_3d(vol: torch.Tensor, grid: torch.Tensor,
-                   align_corners: bool = True) -> torch.Tensor:
+                   align_corners: bool = True,
+                   round_weights: bool = False) -> torch.Tensor:
     """vol (B, D, H, W, C); grid (B, ..., 3) of (x, y, z) in [-1, 1], x
     indexing W, y H, z D -> (B, ..., C), float32 when vol is bf16 (the
-    product with the float32 weights)."""
+    product with the float32 weights; with ``round_weights`` each tent
+    weight is first rounded to vol's type)."""
     B, D, H, W, C = vol.shape
     x = _unnormalize(grid[..., 0], W, align_corners).reshape(B, -1)
     y = _unnormalize(grid[..., 1], H, align_corners).reshape(B, -1)
@@ -63,6 +65,9 @@ def grid_sample_3d(vol: torch.Tensor, grid: torch.Tensor,
                 idx = ((iz.clamp(0, D - 1) * H + iy.clamp(0, H - 1)) * W
                        + ix.clamp(0, W - 1)).long()
                 vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
-                t = vals * torch.where(inside, w, torch.zeros_like(w))[..., None]
+                w = torch.where(inside, w, torch.zeros_like(w))
+                if round_weights:
+                    w = w.to(vol.dtype).float()
+                t = vals * w[..., None]
                 out = t if out is None else out + t
     return out.reshape(*grid.shape[:-1], C)

@@ -129,12 +129,16 @@ def supports(shape: Sequence[int]) -> bool:
             and W >= SLAB_X and C % 128 == 0 and D >= ZBAND)
 
 
-def warp_affine_3d_plain(vol: torch.Tensor, mat: torch.Tensor
-                         ) -> torch.Tensor:
-    """Plain version; arguments and result as :func:`warp_affine_3d`."""
+def warp_affine_3d_plain(vol: torch.Tensor, mat: torch.Tensor,
+                         round_weights: bool = False) -> torch.Tensor:
+    """Plain version; arguments and result as :func:`warp_affine_3d`.
+    ``round_weights``: each tent weight rounded to vol's type first, as
+    the kernel and the JAX package's eval warps (its TPU kernel, its tiled
+    XLA fallback) round it; its training warp does not."""
     _, D, H, W, _ = vol.shape
     grid = geometry.flow_grid(mat.float(), (D, H, W))
-    return grid_sample_3d(vol, grid).to(vol.dtype)
+    return grid_sample_3d(vol, grid,
+                          round_weights=round_weights).to(vol.dtype)
 
 
 def warp_affine_3d(vol: torch.Tensor, mat: torch.Tensor,

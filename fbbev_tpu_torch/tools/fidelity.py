@@ -1,6 +1,6 @@
 """End-to-end numeric fidelity: float32 against the served configuration.
 Counterpart of the JAX package's ``tools/fidelity.py``, with its flags
-and report keys.
+and report keys, and the relative L2 of each stage besides.
 
 Runs the same weights through
 
@@ -11,10 +11,11 @@ Runs the same weights through
 
 over a short synthetic temporal stream (or, with ``--config``, the first
 frames of the config's validation data), then prints per frame the
-occupancy argmax agreement, the top-1 logit errors and the per-stage
-max-abs errors (depth, context, bev_refined), one JSON line each, then a
-summary line.  Random weights get ``--bn-warmup`` train-mode passes over
-the stream first, so that their BatchNorm statistics normalise the
+occupancy argmax agreement, the top-1 logit errors, the per-stage
+max-abs errors (depth, context, bev_refined) and the relative L2 of each
+stage and of the logits, one JSON line each, then a summary line.
+Random weights get ``--bn-warmup`` train-mode passes over the stream
+first, so that their BatchNorm statistics normalise the
 activations as a trained network's do; ``--ckpt`` reads the port's
 checkpoints (``train/checkpoints.py``), ``--ema`` their EMA weights.
 
@@ -154,6 +155,13 @@ def run_stream(model, stream, dtype, dev, qparams=None):
     return outs
 
 
+def _rel_l2(b: np.ndarray, a: np.ndarray) -> float:
+    """||b - a|| / ||a|| over every element, in float64."""
+    a = a.astype(np.float64)
+    return float(np.linalg.norm(b.astype(np.float64) - a)
+                 / (np.linalg.norm(a) + 1e-30))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true")
@@ -238,6 +246,7 @@ def main(argv=None):
                                          4)
         fr["top1_logit_rms"] = round(
             float(np.sqrt(((top_a - top_b) ** 2).mean())), 5)
+        fr["occ_logits_rel_l2"] = round(_rel_l2(lb, la), 6)
         for k in ("depth", "context", "bev_refined"):
             if k in a:
                 err = np.abs(a[k].astype(np.float64)
@@ -246,6 +255,7 @@ def main(argv=None):
                 fr[f"{k}_max_abs"] = round(float(err.max()), 4)
                 fr[f"{k}_max_rel_to_peak"] = round(float(err.max() / ref),
                                                    5)
+                fr[f"{k}_rel_l2"] = round(_rel_l2(b[k], a[k]), 6)
         report["frames"].append(fr)
         print(json.dumps(fr))
     agree = [f["occ_argmax_agreement_pct"] for f in report["frames"]]

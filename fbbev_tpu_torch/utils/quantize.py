@@ -324,8 +324,10 @@ def quant_conv(m: nn.Module, qp: Dict[str, Any], x: torch.Tensor):
     if m.padding_mode != "zeros" or isinstance(m.padding, str):
         raise NotImplementedError(
             f"int8 conv: padding {m.padding!r} ({m.padding_mode})")
+    # x uncast, as JAX quantizes a flax conv's input; the result in the
+    # conv's type (``_out_dtype``)
     return conv_s8.conv_s8(x, qp, m.stride, m.padding, m.dilation,
-                           m.groups)
+                           m.groups).to(m.weight.dtype)
 
 
 def set_quantized(model: nn.Module,

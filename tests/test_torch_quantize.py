@@ -815,7 +815,10 @@ def test_fidelity_small_int8_line(capsys):
         "top1_logit_max_abs", "top1_logit_rms", "depth_max_abs",
         "depth_max_rel_to_peak", "context_max_abs",
         "context_max_rel_to_peak", "bev_refined_max_abs",
-        "bev_refined_max_rel_to_peak"])
+        "bev_refined_max_rel_to_peak", "occ_logits_rel_l2",
+        "depth_rel_l2", "context_rel_l2", "bev_refined_rel_l2"])
+    assert all(0.0 <= out[1][k] < 1.0 for k in out[1] if
+               k.endswith("_rel_l2"))
     assert out[-1]["min_agreement_pct"] == report["min_agreement_pct"]
     assert report["int8"] and report["fold_bn"]
     assert report["min_agreement_pct"] > 90.0

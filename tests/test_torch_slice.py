@@ -5,7 +5,11 @@ and converted with ``fbbev_tpu_torch.weights``) over the same 5-frame
 stream with sequence starts at frames 0 and 3 and small ego motion inside
 the fused warp's locality contract.  JAX runs its TPU kernels through the
 Pallas interpreter (the voxel pool and the fused history warp); the port
-runs its kernels' plain PyTorch versions.  Everything is float32.
+runs its kernels' plain PyTorch versions.  Everything is float32; the
+served bf16 path is held against JAX's bf16 by ``test_torch_bf16.py``,
+module by module and over two frames of this stream (its tolerances:
+the port's bf16 no farther from float32 than 1.1 x JAX's, and the two
+bf16 results within each module's stated k x JAX's bf16 error).
 
 The small config passes the JAX kernel gates: a 64x128 input (fH*fW a
 multiple of 8 for the pool), a 20x20x8 grid (Y, X multiples of 10 for the
